@@ -2,12 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (``oscillink_tpu_torch/csrc/spmv.cu``) from the checkout,
-holds it against its plain PyTorch version, drives the lattice's main path
-(build -> settle -> U* -> receipt -> bundle / chain_receipt) through the
-public entry points, and times each phase and the kernel.  Every check that
-fails raises, so the script exits non-zero; it never falls back to the CPU.
-Without CUDA it exits 1 before printing any result.
+Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``) and K2-K4
+(``csrc/window_spmv.cu``) from the checkout, one ``nvcc`` per source, and
+holds each against its plain PyTorch version.  Then it drives the lattice's
+paths through the public entry points:
+
+* the gather path (K1): quickstart and headline against the port's CPU path,
+  and the 131072 x 768 x k8 corpus;
+* the windowed tier (``OSCILLINK_WINDOWED_MATVEC=1``): a locality-ordered
+  131072 x 768 x k8 corpus through K4, held to the gather path on the same
+  corpus; a clustered corpus with stragglers through K4 (fused) and K3
+  (``OSCILLINK_WINDOWED_FUSED=0``); and a D = 97 lattice through K2 and its
+  straggler epilogue, each held to the port's CPU path.
+
+Each path runs with every launch count set to 0 just before it and read just
+after.  Every check that fails raises, so the script exits non-zero; it
+never falls back to the CPU.  Without CUDA it exits 1 before printing any
+result.
 
 Output: the card's name and power limit (as nvidia-smi reports them), one
 JSON line per phase, the ``{"kernels": [...]}`` line, and as the last line
@@ -16,6 +27,7 @@ JSON line per phase, the ``{"kernels": [...]}`` line, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -28,16 +40,32 @@ import numpy as np
 import torch
 
 from oscillink_tpu_torch import Oscillink
+from oscillink_tpu_torch.core.lattice import _locality_order
 from oscillink_tpu_torch.ops.graph import build_graph, lap_matvec
 from oscillink_tpu_torch.ops.kernels import build as kbuild
 from oscillink_tpu_torch.ops.kernels import spmv
+from oscillink_tpu_torch.ops.kernels import window_spmv as tw
 from oscillink_tpu_torch.ops import receipts as treceipts
 from oscillink_tpu_torch.ops.path import build_path_graph
 from oscillink_tpu_torch.ops.receipts import deltaH_tree_np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL = 1e-5  # kernel vs plain: same K order, the gap is FMA contraction only
+# K2-K4 vs plain, relative to max|plain|: both take the same bf16-rounded
+# operands and sum exact products in f32, only in another order
+WIN_TOL = 1e-5
+PAP_TOL = 1e-4  # K4's column partials: sums over 384 rows, then over blocks
+LATTICE_TOL = 1e-5  # deltaH, card vs the port's CPU path
+WINDOWED_VS_GATHER_TOL = 2e-3  # deltaH, windowed vs gather (tests/test_fused_windowed.py)
+WIN, WIN_R, N_WIN = 384, 384, 3  # the lattice's window geometry
+TIER_PASSES = {"bf16x3": 3, "bf16x2": 2, "oh16": 2, "dma16": 2, "bf16": 1}
+WINDOW_KERNELS = (
+    ("K2", "window_spmv", tw.window_spmv_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:409"),
+    ("K3", "window_spmv3", tw.window_spmv3_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:457"),
+    ("K4", "window_spmv3f", tw.window_spmv3f_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:594"),
+)
 
 QUICK = dict(n=120, d=128, k=6, chain=[2, 5, 7, 9], lamP=0.2)
 HEADLINE = dict(n=5000, d=128, k=6)  # bench.py's workload
@@ -45,6 +73,9 @@ CORPUS = dict(n=131072, d=768, k=8)  # the 100k-131k x 768 x k8 corpus tier
 RAGGED = dict(n=4099, d=97, k=5)
 K_ONE = dict(n=333, d=130, k=1)
 K_WIDE = dict(n=1000, d=64, k=40)  # more neighbours than one warp's 32 lanes
+WIN_RAGGED = dict(n=4099, d=97, k=8)  # N not a multiple of 384, D not of 4
+STRAGGLERS = dict(n=16384, d=768, k=8)
+NARROW = dict(n=8192, d=97, k=8)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -212,13 +243,13 @@ def kernel_vs_plain(shape: dict, gen: torch.Generator) -> dict:
     return {"g": g, "X": X, "err": err}
 
 
-def csr_of(g, n: int) -> torch.Tensor:
-    """(I - Wn) as a CSR matrix: the library yardstick computes K1's function
-    with one torch.sparse.mm call."""
-    dev = g.idx.device
-    k = g.k_max
-    cols = torch.cat([torch.arange(n, device=dev)[:, None], g.idx.long()], dim=1)
-    vals = torch.cat([torch.ones(n, 1, device=dev), -g.wn], dim=1)
+def csr_of(idx: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
+    """(I - Wn) as a CSR matrix: the library yardstick computes the
+    operator of K1 (and of K2-K4) with one torch.sparse.mm call."""
+    dev = idx.device
+    n, k = idx.shape
+    cols = torch.cat([torch.arange(n, device=dev)[:, None], idx.long()], dim=1)
+    vals = torch.cat([torch.ones(n, 1, device=dev), -wn], dim=1)
     cols, perm = torch.sort(cols, dim=1)
     vals = torch.gather(vals, 1, perm)
     crow = torch.arange(0, n * (k + 1) + 1, k + 1, device=dev)
@@ -235,7 +266,7 @@ def time_kernel(shape: dict, case: dict) -> dict:
     reps = 200 if n * d < 10_000_000 else 20
     kernel_ms = cuda_ms(lambda: spmv.lap_matvec_cuda(g.idx, g.wn, X), reps)
     plain_ms = cuda_ms(lambda: spmv.lap_matvec_ref(g.idx, g.wn, X), max(2, reps // 10))
-    A = csr_of(g, n)
+    A = csr_of(g.idx, g.wn)
     lib_out = torch.sparse.mm(A, X)
     lib_err = float((lib_out - lap_matvec(g, X)).abs().max())
     check(lib_err < 1e-4, f"library yardstick disagrees with K1 at {shape}: {lib_err}")
@@ -260,6 +291,397 @@ def time_kernel(shape: dict, case: dict) -> dict:
     return row
 
 
+# -- the windowed tier (kernels K2-K4) ----------------------------------------
+
+
+@contextlib.contextmanager
+def env(**values: str):
+    """Set environment variables for the block, then restore them."""
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+
+def reset_counts() -> None:
+    spmv.launches = 0
+    for _, _, fn, _ in WINDOW_KERNELS:
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {"K1": spmv.launches, **{name: fn.launches for name, _, fn, _ in WINDOW_KERNELS}}
+
+
+def bench_graph(n: int, k: int, seed: int = 0):
+    """The JAX package's kernel-bench graph (bench.py): neighbours i +- 400
+    (mod n), weights U[0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    idx = ((np.arange(n)[:, None] + rng.integers(-400, 400, size=(n, k))) % n).astype(np.int32)
+    wn = (rng.random((n, k)) * 0.1).astype(np.float32)
+    return idx, wn
+
+
+def window_case(shape: dict, seed: int) -> dict:
+    """The bench graph at ``shape`` with the lattice's window geometry: its
+    plan (the device builder, rows in their own order, a straggler cap that
+    cannot truncate) and one-hots on the card, X (padding rows zero) and a
+    diagonal g."""
+    n, d, k = shape["n"], shape["d"], shape["k"]
+    idx, wn = bench_graph(n, k, seed)
+    idx_t, wn_t = torch.from_numpy(idx).cuda(), torch.from_numpy(wn).cuda()
+    # a block's padded straggler segment is at most R * k entries
+    seg_bound = -(-WIN_R * k // 128) * 128
+    cap = -(-(n * k + 8 * -(-n // WIN_R) + seg_bound) // 128) * 128
+    plan, cov_t, n_strag_t, fits_t = tw.build_window_plan_device(
+        idx_t, wn_t, torch.arange(n, device="cuda"), WIN, WIN_R, cap, seg_bound, N_WIN)
+    check(bool(fits_t) and int(n_strag_t) <= cap, f"bench-graph plan refused at {shape}")
+    s_max = tw.plan_s_max(plan)
+    plan = tw.right_size_stragglers(plan, int(plan.strag_off[-1]), s_max)
+    oh = tw.build_onehot(plan, WIN, s_max)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(n, d, generator=gen, device="cuda")
+    cnt = plan.strag_cnt.cpu().numpy()
+    return {
+        "idx": idx_t, "wn": wn_t, "plan": plan, "oh": oh, "s_max": s_max,
+        "X": X, "Xpad": tw.pad_rows(X, plan.n_pad),
+        "g": 1.5 + torch.rand(plan.n_pad, 1, generator=gen, device="cuda"),
+        "nnz": {"main": int(torch.count_nonzero(oh.main)),
+                "strag": int(torch.count_nonzero(oh.strag)),
+                "strag_w": int(torch.count_nonzero(plan.strag_w))},
+        "info": {**shape, "coverage": float(cov_t), "s_max": s_max, "n_pad": plan.n_pad,
+                 "blocks": len(cnt), "blocks_with_stragglers": int((cnt > 0).sum())},
+    }
+
+
+def window_calls(case: dict, tier: str) -> dict:
+    """(kernel, plain) callables of K2, K3 and K4 at ``tier``; the one-hot is
+    stored in bf16 under oh16/dma16, as the lattice stores it."""
+    plan, oh, X, g, s_max = case["plan"], case["oh"], case["Xpad"], case["g"], case["s_max"]
+    main = oh.main.to(torch.bfloat16) if tier in ("oh16", "dma16") else oh.main
+    geo = (WIN, WIN_R)
+    return {
+        "K2": (lambda: tw.window_spmv_cuda(plan, main, X, *geo, tier),
+               lambda: tw.window_spmv_ref(plan, main, X, *geo, tier)),
+        "K3": (lambda: tw.window_spmv3_cuda(plan, main, oh.strag, X, *geo, s_max, tier),
+               lambda: tw.window_spmv3_ref(plan, main, oh.strag, X, *geo, s_max, tier)),
+        "K4": (lambda: tw.window_spmv3f_cuda(plan, main, oh.strag, X, g, *geo, s_max, tier),
+               lambda: tw.window_spmv3f_ref(plan, main, oh.strag, X, g, *geo, s_max, tier)),
+    }
+
+
+def window_vs_plain(case: dict, tier: str) -> dict:
+    """K2, K3, K4 (and K4's column partials) against their plain versions."""
+    errs = {}
+    for name, (kern, plain) in window_calls(case, tier).items():
+        out, ref = kern(), plain()
+        pairs = [(name, out, ref, WIN_TOL)]
+        if name == "K4":
+            pairs = [(name, out[0], ref[0], WIN_TOL), ("K4_pap", out[1], ref[1], PAP_TOL)]
+        for key, o, r, tol in pairs:
+            torch.cuda.synchronize()
+            err = float((o - r).abs().max())
+            scale = float(r.abs().max())
+            check(bool(torch.isfinite(o).all()), f"{key} output not finite ({tier}, {case['info']})")
+            check(err <= tol * scale, f"{key} != plain ({tier}, {case['info']}): {err} > {tol} * {scale}")
+            errs[key] = err
+    return errs
+
+
+def window_bound(case: dict, name: str, tier: str = "bf16x3") -> dict:
+    """The least time for one apply of ``name`` (``bound_ms``, ``bound_by``):
+    each of the kernel's inputs read once and each output written once over
+    the HBM rate, against the products this plan's data needs — one per
+    nonzero one-hot entry and column, in the tier's bf16 passes — over the
+    tensor cores' peak, plus the f32 elementwise work.  Apart from it,
+    ``dense_ceiling_ms``: the dense one-hot products the design computes
+    (most of them by a zero weight) over the same peak.  Straggler terms
+    count only the blocks of this plan that have stragglers."""
+    plan, s_max, nnz = case["plan"], case["s_max"], case["nnz"]
+    n_pad, d = case["Xpad"].shape
+    cols = plan.n_windows * WIN
+    blocks = plan.n_blocks
+    strag_blocks = case["info"]["blocks_with_stragglers"]
+    passes, s_passes = TIER_PASSES[tier], (1 if tier == "dma16" else 2)
+    oh_item = 2 if tier in ("oh16", "dma16") else 4
+    nbytes = n_pad * cols * oh_item + 2 * n_pad * d * 4 + plan.cs.numel() * 4
+    needed = passes * 2 * nnz["main"] * d
+    dense = passes * 2 * n_pad * cols * d
+    f32_ops = n_pad * d
+    if name != "K2":
+        c_item = 2 if tier == "dma16" else 4
+        nbytes += (strag_blocks * WIN_R * s_max * 2 + plan.strag_w.numel() * d * c_item
+                   + 2 * blocks * 4)
+        needed += s_passes * 2 * nnz["strag"] * d
+        dense += s_passes * 2 * strag_blocks * WIN_R * s_max * d
+        f32_ops += nnz["strag_w"] * d  # the contributions strag_w * X[strag_src]
+    if name == "K4":
+        nbytes += n_pad * 4 + blocks * d * 4
+        f32_ops += 3 * n_pad * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = needed / BF16_FLOPS + f32_ops / F32_FLOPS
+    return {
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "dense_ceiling_ms": 1e3 * (dense / BF16_FLOPS + f32_ops / F32_FLOPS),
+    }
+
+
+def window_timing(case: dict) -> dict:
+    """K2-K4 at the default tier (bf16x3) with CUDA events, beside their
+    plain versions, their bounds, torch.sparse.mm of the same operator as a
+    CSR matrix, and K1 on the same graph.  K3/K4 are timed through their
+    wrappers, the gather of the straggler contributions included."""
+    n = case["info"]["n"]
+    X = case["X"]
+    A = csr_of(case["idx"], case["wn"])
+    lib_out = torch.sparse.mm(A, X)
+    k1_out = spmv.lap_matvec_cuda(case["idx"], case["wn"], X)
+    k3_out = window_calls(case, "bf16x3")["K3"][0]()[:n]
+    torch.cuda.synchronize()
+    lib_err = float((lib_out - k3_out).abs().max())
+    check(lib_err <= 1e-4 * float(lib_out.abs().max()),
+          f"library yardstick disagrees with K3: {lib_err}")
+    library_ms = cuda_ms(lambda: torch.sparse.mm(A, X), 20)
+    k1_ms = cuda_ms(lambda: spmv.lap_matvec_cuda(case["idx"], case["wn"], X), 20)
+    k1_err = float((k1_out - k3_out).abs().max())
+    rows = {}
+    for name, (kern, plain) in window_calls(case, "bf16x3").items():
+        rows[name] = {
+            "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 3),
+            **window_bound(case, name), "library_ms": library_ms,
+        }
+    emit("window_timing", **case["info"], tier="bf16x3", k1_same_graph_ms=k1_ms,
+         k1_vs_k3_max_abs=k1_err, library_vs_k3_max_abs=lib_err, nnz=case["nnz"], **rows)
+    return {"rows": rows, "k1_ms": k1_ms}
+
+
+def locality_corpus(n: int, d: int, clusters: int = 2048, seed: int = 0):
+    """A locality-ordered corpus: ``clusters`` clusters of n/clusters rows, each
+    at 10 s along e0 (s evenly spaced in [-1, 1]) plus a random offset of norm
+    about 1 orthogonal to e0, with 0.05/sqrt(D) noise per dimension; rows
+    shuffled.  psi is the normalized mean of the first 32 rows."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((clusters, d), dtype=np.float32) / np.float32(np.sqrt(d))
+    centres[:, 0] = 10.0 * np.linspace(-1.0, 1.0, clusters, dtype=np.float32)
+    Y = np.repeat(centres, n // clusters, axis=0)
+    Y += np.float32(0.05 / np.sqrt(d)) * rng.standard_normal(Y.shape, dtype=np.float32)
+    Y = Y[np.random.default_rng(seed).permutation(n)]
+    m = Y[:32].mean(axis=0)
+    return Y, (m / (np.linalg.norm(m) + 1e-12)).astype(np.float32)
+
+
+def clustered_corpus(n: int, d: int, seed: int = 0):
+    """The JAX package's "real clustered" corpus
+    (benchmarks/probe_e2e_settle_dma16.py): 64 Gaussian centres, noise 0.35.
+    psi is the normalized mean of the first 64 rows."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((64, d)).astype(np.float32)
+    assign = rng.integers(0, 64, size=n)
+    Y = (centers[assign] + 0.35 * rng.standard_normal((n, d))).astype(np.float32)
+    m = Y[:64].mean(axis=0)
+    return Y, (m / (np.linalg.norm(m) + 1e-12)).astype(np.float32)
+
+
+def ctx_info(lat: Oscillink) -> dict:
+    ctx = lat._window_ctx
+    check(ctx is not None, "OSCILLINK_WINDOWED_MATVEC=1 built no window context")
+    cnt = ctx.plan.strag_cnt.cpu()
+    return {
+        "coverage": lat._window_coverage,
+        "stragglers": int(torch.count_nonzero(ctx.plan.strag_w)),
+        "blocks_with_stragglers": int(torch.count_nonzero(cnt)),
+        "blocks": int(cnt.numel()),
+        "s_max": int(ctx.oh.strag.shape[1]),
+        "n_pad": ctx.plan.n_pad,
+    }
+
+
+def windowed_pass(Y, psi, k: int) -> tuple[dict, dict]:
+    """One pass of the windowed main path on the card: build (graph, locality
+    order, plan, one-hots), settle, U*, light and full receipt, bundle.
+    Returns the phase times and what the pass counted and produced."""
+    t = {}
+    t0 = time.perf_counter()
+    lat = Oscillink(Y, kneighbors=k)
+    lat.set_query(psi)
+    lat.set_receipt_detail("light")
+    t["build_ms"] = sync_ms(t0)
+    info = ctx_info(lat)
+    k4 = tw.window_spmv3f_cuda
+    before = k4.launches
+    t0 = time.perf_counter()
+    lat.settle(dt=1.0, max_iters=12, tol=1e-3)
+    t["settle_ms"] = sync_ms(t0)
+    settle_k4 = k4.launches - before
+    before = k4.launches
+    t0 = time.perf_counter()
+    lat._solve_ustar_device()
+    t["ustar_ms"] = sync_ms(t0)
+    ustar_k4 = k4.launches - before
+    before = spmv.launches
+    t0 = time.perf_counter()
+    lat.receipt()
+    t["receipt_light_ms"] = sync_ms(t0)
+    lat.set_receipt_detail("full")
+    t0 = time.perf_counter()
+    rec = lat.receipt()
+    t["receipt_full_ms"] = sync_ms(t0)
+    receipt_k1 = spmv.launches - before
+    t0 = time.perf_counter()
+    bundle = [b["id"] for b in lat.bundle(k=8)]
+    t["bundle_ms"] = sync_ms(t0)
+    out = {
+        **info, "settle_iters": lat.last["iters"], "ustar_iters": rec["meta"]["ustar_iters"],
+        "settle_k4": settle_k4, "ustar_k4": ustar_k4, "receipt_k1": receipt_k1,
+        "deltaH": rec["deltaH_total"], "null_points": len(rec["null_points"]),
+        "bundle": bundle, "window_precision": rec["meta"].get("window_precision"), "lat": lat,
+    }
+    return t, out
+
+
+def window_ctx_timing(lat: Oscillink) -> dict:
+    """The window context's build on a built lattice, timed to a sync: the
+    locality order alone, the one-hots alone, and the whole context (order,
+    device plan with its one host read, one-hots)."""
+    t = {}
+    t0 = time.perf_counter()
+    _locality_order(lat._Y_dev)
+    t["locality_order_ms"] = sync_ms(t0)
+    ctx = lat._window_ctx
+    t0 = time.perf_counter()
+    tw.build_onehot(ctx.plan, WIN, ctx.oh.strag.shape[1])
+    t["onehot_ms"] = sync_ms(t0)
+    t0 = time.perf_counter()
+    lat._maybe_build_window_ctx()
+    t["window_ctx_ms"] = sync_ms(t0)
+    return t
+
+
+def windowed_corpus() -> int:
+    """The full-width windowed main path (K4) on a locality-ordered
+    131072 x 768 x k8 corpus, then the gather path on the same corpus.
+    Returns the K4 launches counted across the windowed run."""
+    Y, psi = locality_corpus(CORPUS["n"], CORPUS["d"])
+    with env(OSCILLINK_WINDOWED_MATVEC="1"):
+        windowed_pass(Y, psi, CORPUS["k"])  # warm-up
+        passes = [windowed_pass(Y, psi, CORPUS["k"])[0] for _ in range(2)]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t, run = windowed_pass(Y, psi, CORPUS["k"])
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        passes.append(t)
+        lat = run.pop("lat")
+        U = lat.U
+        ctx_t = window_ctx_timing(lat)
+        del lat
+    with env(OSCILLINK_WINDOWED_MATVEC="0"):
+        lat = Oscillink(Y, kneighbors=CORPUS["k"])
+        lat.set_query(psi)
+        lat.settle(dt=1.0, max_iters=12, tol=1e-3)
+        rec = lat.receipt()
+        gather = {"deltaH": rec["deltaH_total"], "bundle": [b["id"] for b in lat.bundle(k=8)],
+                  "settle_iters": lat.last["iters"], "ustar_iters": rec["meta"]["ustar_iters"]}
+        del lat
+    rel = abs(run["deltaH"] - gather["deltaH"]) / max(abs(gather["deltaH"]), 1e-30)
+    emit("windowed_corpus", **CORPUS, passes=len(passes), **medians(passes), last_pass=t,
+         **ctx_t, **{key: val for key, val in run.items() if key != "bundle"},
+         launches=counts, max_memory_allocated_bytes=peak, bundle_ids=run["bundle"],
+         gather=gather, deltaH_rel_vs_gather=rel)
+    check(counts["K4"] > 0, "K4 was not launched on the windowed main path")
+    check(run["settle_k4"] == run["settle_iters"] + 1,
+          f"K4 launches in settle {run['settle_k4']} != r0 + {run['settle_iters']} iterations")
+    check(run["ustar_k4"] == run["ustar_iters"] + 1,
+          f"K4 launches in U* {run['ustar_k4']} != r0 + {run['ustar_iters']} iterations")
+    check(counts["K1"] == run["receipt_k1"] == 2,
+          f"K1 launches {counts['K1']} != the 2 receipts' operator applies")
+    check(counts["K4"] == run["settle_k4"] + run["ustar_k4"], "K4 launched off settle and U*")
+    check(U.shape == (CORPUS["n"], CORPUS["d"]) and bool(np.isfinite(U).all()),
+          "windowed U not finite")
+    check(np.isfinite(run["deltaH"]) and run["deltaH"] >= 0, "windowed deltaH invalid")
+    check(rel <= WINDOWED_VS_GATHER_TOL, f"windowed deltaH differs from gather: {rel}")
+    check(run["bundle"] == gather["bundle"], "windowed bundle ids differ from gather")
+    return counts["K4"]
+
+
+def windowed_flow(lat: Oscillink, psi) -> dict:
+    """A forced-windowed lattice: settle, full receipt, bundle."""
+    info = ctx_info(lat)
+    lat.set_query(psi)
+    st = lat.settle(dt=1.0, max_iters=12, tol=1e-3)
+    rec = lat.receipt()
+    return {
+        **info, "deltaH": rec["deltaH_total"], "null_points": len(rec["null_points"]),
+        "bundle": [b["id"] for b in lat.bundle(k=8)], "state_sig": rec["meta"]["state_sig"],
+        "settle_iters": st["iters"], "ustar_iters": rec["meta"]["ustar_iters"],
+        "window_precision": rec["meta"].get("window_precision"),
+    }
+
+
+def near_tie_witness(Y: np.ndarray, idx_card: np.ndarray, idx_cpu: np.ndarray) -> dict:
+    """Where the card's top-k and the CPU's differ, the f64 similarities of
+    the two neighbours in each differing slot.  Each slot holds the row's
+    k-th order statistic of its f32 similarities on both sides, so when the
+    two differ only by rounding, the f64 gap is at most twice the sum of the
+    two sides' worst f32 errors: 8 * gamma_(D+2) for unit rows (dot product
+    and row norm on each side, gamma_n = n u / (1 - n u), u = 2^-24).
+    A wrong neighbour lies far outside that; ulps are reported too."""
+    rows, slots = np.nonzero(idx_card != idx_cpu)
+    out = {"slots_differ": int(rows.size), "slots": int(idx_card.size)}
+    d = Y.shape[1]
+    nu = (d + 2) * 2.0**-24
+    out["gap_bound"] = 8 * nu / (1 - nu)
+    if rows.size == 0:
+        return {**out, "max_gap": 0.0, "max_gap_ulps": 0.0}
+    Yn = Y.astype(np.float64)
+    Yn /= np.linalg.norm(Yn, axis=1, keepdims=True) + 1e-12
+    s_card = np.einsum("ij,ij->i", Yn[rows], Yn[idx_card[rows, slots]])
+    s_cpu = np.einsum("ij,ij->i", Yn[rows], Yn[idx_cpu[rows, slots]])
+    gap = np.abs(s_card - s_cpu)
+    ulp = np.spacing(np.maximum(np.abs(s_card), np.abs(s_cpu)).astype(np.float32))
+    return {**out, "max_gap": float(gap.max()), "max_gap_ulps": float((gap / ulp).max())}
+
+
+def card_vs_cpu(tag: str, Y, psi, k: int, kernel: str) -> tuple[dict, Oscillink]:
+    """The forced-windowed flow on the card, launch counts set to 0 just
+    before it and read just after, held to the port's CPU path on the card's
+    graph.  cuBLAS and the CPU's BLAS round the f32 similarities differently,
+    so near-tied neighbours can swap slots between the two builds: the phase
+    counts those slots, holds their f64 gap to the rounding bound
+    (`near_tie_witness`), and then compares the windowed tier on one graph."""
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = Oscillink(Y, kneighbors=k)
+    gpu = windowed_flow(lat, psi)
+    wall_ms = sync_ms(t0)
+    counts = read_counts()
+    ties = near_tie_witness(
+        Y, lat.graph.idx.cpu().numpy(), build_graph(torch.from_numpy(Y), k).idx.numpy())
+    lat_cpu = Oscillink(Y, kneighbors=k, device="cpu", graph=lat.graph)
+    cpu = windowed_flow(lat_cpu, psi)
+    del lat_cpu
+    rel = abs(gpu["deltaH"] - cpu["deltaH"]) / max(abs(cpu["deltaH"]), 1e-30)
+    emit(tag, cuda={key: val for key, val in gpu.items() if key != "bundle"}, cuda_wall_ms=wall_ms,
+         cpu_settle_iters=cpu["settle_iters"], cpu_ustar_iters=cpu["ustar_iters"],
+         bundle_ids=gpu["bundle"], launches=counts, deltaH_rel=rel,
+         graph_build_cuda_vs_cpu=ties)
+    check(ties["max_gap"] <= ties["gap_bound"],
+          f"{tag}: the card's graph and the CPU's differ beyond rounding: {ties}")
+    check(counts[kernel] > 0, f"{kernel} was not launched on the {tag} path")
+    check(rel <= LATTICE_TOL, f"{tag} deltaH differs: {rel}")
+    for key in ("null_points", "bundle", "state_sig", "settle_iters", "ustar_iters",
+                "window_precision", "coverage", "stragglers", "s_max"):
+        check(gpu[key] == cpu[key], f"{tag} {key}: cuda {gpu[key]} vs cpu {cpu[key]}")
+    return {"launches": counts[kernel], **gpu}, lat
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -272,14 +694,21 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
 
-    # 1. build K1 from the checkout's source
+    # 1. build K1 and K2-K4 from the checkout's sources, one nvcc per source
+    sources = ("spmv", "window_spmv")
     t0 = time.perf_counter()
-    kbuild.load_library("spmv")
+    kbuild.build(list(sources))
     build_s = time.perf_counter() - t0
-    log = kbuild._target("spmv")[1].with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    emit("build", seconds=build_s, library=log.with_suffix(".so").name, ptxas=ptxas)
+    libs = {}
+    for name in sources:
+        log = kbuild._target(name)[1].with_suffix(".log")
+        libs[name] = {
+            "library": log.with_suffix(".so").name,
+            "ptxas": [ln.strip() for ln in log.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln] if log.exists() else [],
+        }
+        kbuild.load_library(name)
+    emit("build", seconds=build_s, **libs)
 
     # 2. K1 against its plain version on graphs built by the port
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -288,7 +717,28 @@ def main() -> int:
                         ("k_one", K_ONE), ("k_wide", K_WIDE)):
         cases[name] = kernel_vs_plain(shape, gen)
 
-    # 3. quickstart: the card against the port's own CPU path
+    # 3. K2-K4 against their plain versions, every precision tier, on the
+    # kernel-bench graph at the corpus shape and at a ragged N and D; then
+    # their times at the corpus shape (default tier)
+    win_errs: dict = {}
+    for shape, seed in ((CORPUS, 0), (WIN_RAGGED, 1)):
+        case = window_case(shape, seed)
+        info = case["info"]
+        if shape is CORPUS:
+            check(0 < info["blocks_with_stragglers"] < info["blocks"],
+                  f"the bench graph should give blocks with and without stragglers: {info}")
+        for tier in tw.PRECISION_TIERS:
+            errs = window_vs_plain(case, tier)
+            emit("window_vs_plain", **info, tier=tier, max_abs_err=errs,
+                 tol={"K2-K4": WIN_TOL, "K4_pap": PAP_TOL, "relative_to": "max|plain|"})
+            for key, err in errs.items():
+                win_errs[key] = max(win_errs.get(key, 0.0), err)
+        if shape is CORPUS:
+            win_timing = window_timing(case)
+        del case
+    torch.cuda.empty_cache()
+
+    # 4. quickstart: the card against the port's own CPU path
     gpu, cpu = quickstart("cuda"), quickstart("cpu")
     rel = abs(gpu["deltaH"] - cpu["deltaH"]) / max(abs(cpu["deltaH"]), 1e-30)
     emit("quickstart", cuda=gpu, cpu=cpu, deltaH_rel=rel)
@@ -298,19 +748,19 @@ def main() -> int:
     for run in (gpu, cpu):
         check(run["deltaH_f64_tree_bits_equal_numpy_spec"], "f64-tree deltaH != NumPy spec bits")
 
-    # 4. headline config: the card against the CPU, then warm medians
+    # 5. headline config: the card against the CPU, then warm medians
     Y, psi = data(HEADLINE["n"], HEADLINE["d"])
     emit("headline_parity", **HEADLINE, **headline_parity(Y, psi, HEADLINE["k"]))
     flow_pass(Y, psi, HEADLINE["k"])
     passes = [flow_pass(Y, psi, HEADLINE["k"])[0] for _ in range(5)]
     emit("headline", **HEADLINE, passes=len(passes), **medians(passes))
 
-    # 5. corpus scale: the main path with the launch count of its last pass
+    # 6. corpus scale, gather path (K1): the launch counts of its last pass
     Y, psi = data(CORPUS["n"], CORPUS["d"])
     flow_pass(Y, psi, CORPUS["k"])
     passes = [flow_pass(Y, psi, CORPUS["k"])[0] for _ in range(2)]
     torch.cuda.reset_peak_memory_stats()
-    spmv.launches = 0
+    reset_counts()
     t, lat, settle_launches = flow_pass(Y, psi, CORPUS["k"])
     t0 = time.perf_counter()
     lat.set_receipt_detail("full")
@@ -320,15 +770,17 @@ def main() -> int:
     bundle = lat.bundle(k=8)
     chain = lat.chain_receipt([2, 5, 7, 9])
     t["bundle_chain_ms"] = sync_ms(t0)
-    launches = spmv.launches
+    counts = read_counts()
+    launches = counts["K1"]
     peak = torch.cuda.max_memory_allocated()
     passes.append(t)
     settle_it, ustar_it = lat.last["iters"], rec["meta"]["ustar_iters"]
     applies = (settle_it + 1) + (ustar_it + 1) + 2  # r0 + one per iteration; 2 receipts
     U = lat.U
+    del lat
     emit("corpus", **CORPUS, passes=len(passes), **medians(passes), last_pass=t,
          settle_iters=settle_it, ustar_iters=ustar_it, spmv_launches=launches,
-         operator_applies=applies, settle_launches=settle_launches,
+         operator_applies=applies, settle_launches=settle_launches, launches=counts,
          host_syncs_per_settle=settle_it,
          max_memory_allocated_bytes=peak, deltaH=rec["deltaH_total"],
          null_points=len(rec["null_points"]), bundle_ids=[b["id"] for b in bundle],
@@ -341,16 +793,47 @@ def main() -> int:
     check(np.isfinite(rec["deltaH_total"]) and rec["deltaH_total"] >= 0, "deltaH invalid")
     check(len(bundle) == 8 and len({b["id"] for b in bundle}) == 8, "bundle ids invalid")
 
-    # 6. K1 timing at the main path's shapes
+    # 7. K1 timing at the main path's shapes
     rows = [time_kernel(HEADLINE, cases["headline"]), time_kernel(CORPUS, cases["corpus"])]
     main_row = rows[1]
+    k1_err = max(c["err"] for c in cases.values())
+    del cases
+    torch.cuda.empty_cache()
+
+    # 8. windowed corpus: the full-width windowed main path through K4
+    win_launches = {"K4": windowed_corpus()}
+
+    # 9. windowed stragglers: a low-coverage clustered corpus through K4
+    # (fused) and K3 (OSCILLINK_WINDOWED_FUSED=0), each held to the CPU
+    Y, psi = clustered_corpus(STRAGGLERS["n"], STRAGGLERS["d"])
+    with env(OSCILLINK_WINDOWED_MATVEC="1", OSCILLINK_WINDOWED_FUSED="1"):
+        card_vs_cpu("windowed_stragglers_fused", Y, psi, STRAGGLERS["k"], "K4")
+    with env(OSCILLINK_WINDOWED_MATVEC="1", OSCILLINK_WINDOWED_FUSED="0"):
+        win_launches["K3"] = card_vs_cpu(
+            "windowed_stragglers_unfused", Y, psi, STRAGGLERS["k"], "K3")[0]["launches"]
+
+    # 10. narrow D: a D = 97 lattice routes to K2 and the straggler epilogue;
+    # two applies on the card must be bit-equal (no atomics in the epilogue)
+    Y, psi = clustered_corpus(NARROW["n"], NARROW["d"])
+    with env(OSCILLINK_WINDOWED_MATVEC="1"):
+        run, lat = card_vs_cpu("windowed_narrow_d", Y, psi, NARROW["k"], "K2")
+        win_launches["K2"] = run["launches"]
+        ctx = lat._window_ctx
+        Xp = tw.pad_rows(lat._U_dev.index_select(0, ctx.order.long()), ctx.plan.n_pad)
+        first = tw.lap_matvec_windowed(ctx.plan, ctx.oh, Xp)
+        second = tw.lap_matvec_windowed(ctx.plan, ctx.oh, Xp)
+        torch.cuda.synchronize()
+        check(torch.equal(first, second), "K2 + epilogue differs from run to run")
+        emit("windowed_narrow_d_repeat", bit_equal=True)
+        del lat, ctx, Xp, first, second
+
     print(json.dumps({"kernels": [{
         "name": "spmv_gather",
         "route": "cuda",
         "source": "oscillink_tpu_torch/csrc/spmv.cu",
         "replaces": "oscillink_tpu/ops/pallas/spmv.py:43",
         "launches": launches,
-        "max_abs_err": max(c["err"] for c in cases.values()),
+        "max_abs_err": k1_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -360,7 +843,18 @@ def main() -> int:
         "launches_per_settle": settle_launches,
         "gather_ceiling_ms": main_row["gather_ceiling_ms"],
         "per_shape": rows,
-    }]}), flush=True)
+    }] + [{
+        "name": kname,
+        "route": "cuda",
+        "source": "oscillink_tpu_torch/csrc/window_spmv.cu",
+        "replaces": replaces,
+        "launches": win_launches[key],
+        "max_abs_err": win_errs[key],
+        **win_timing["rows"][key],
+        "shape": "bench graph N=131072 (Npad 131328) D=768 K=8, W=R=384, 3 windows, bf16x3",
+        "k1_same_graph_ms": win_timing["k1_ms"],
+        **({"pap_max_abs_err": win_errs["K4_pap"]} if key == "K4" else {}),
+    } for key, kname, _, replaces in WINDOW_KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

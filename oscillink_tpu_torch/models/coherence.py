@@ -12,9 +12,17 @@ Stationary point:  M U* = lamG Y + lamQ B 1 psi^T,
 Implicit Euler settle step (reference lattice.py:159-230):
     (I + dt M) U+ = U + dt (lamG Y + lamQ B 1 psi^T).
 
-Every solve here is the classic `cg_solve`.  The JAX package switches to a
-low-memory CG above 1 GB b-blocks, a threshold sized for a 16 GB chip; that
-variant is not ported yet (ROADMAP.md queue A item 9).
+The gather solves here are the classic `cg_solve`.  The JAX package switches
+to a low-memory CG above 1 GB b-blocks, a threshold sized for a 16 GB chip;
+that variant is not ported yet (ROADMAP.md queue A item 9).
+
+The windowed solves (`WindowCtx`) run the Laplacian through kernels K2–K4
+(`ops/kernels/window_spmv.py`): rows are permuted into the plan's locality
+order and padded to its geometry, CG runs entirely in permuted space (padded
+rows carry decoupled λ_G-only equations), and the solution is permuted back.
+The fused forms fold the operator's diagonal into K4 and solve with
+`cg_solve_kpap`.  Their column-chunked variants are not ported (queue A
+item 9).
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ import torch
 
 from ..ops.graph import Graph, lap_matvec
 from ..ops.path import PathGraph, path_lap_matvec
-from ..ops.solver import cg_solve
+from ..ops.kernels.window_spmv import OneHots, WindowPlan, k_matvec_windowed, lap_matvec_windowed, pad_rows
+from ..ops.solver import cg_solve, cg_solve_kpap
 
 __all__ = [
     "EnergyParams",
@@ -33,6 +42,13 @@ __all__ = [
     "solve_stationary",
     "settle_step",
     "query_rhs",
+    "WindowCtx",
+    "solve_stationary_windowed",
+    "solve_stationary_windowed_fused",
+    "settle_step_windowed",
+    "settle_step_windowed_fused",
+    "solve_stationary_windowed_chunked",
+    "settle_step_windowed_chunked",
 ]
 
 
@@ -125,3 +141,162 @@ def settle_step(
     return cg_solve(
         A_mul, rhs, x0=U if x0 is None else x0, M_diag=M_diag, tol=tol, max_iters=max_iters
     )
+
+
+# -- windowed-matvec solves (kernels K2-K4) ---------------------------------
+
+
+class WindowCtx(NamedTuple):
+    """Locality-ordered window-matvec context, built once per graph."""
+
+    plan: WindowPlan
+    oh: OneHots
+    order: torch.Tensor  # [N] int32: permuted position -> original row
+    inv_order: torch.Tensor  # [N] int32: original row -> permuted position
+
+
+def _permuted_operands(ctx: WindowCtx, arrays):
+    order = ctx.order.long()
+    return [pad_rows(a.index_select(0, order), ctx.plan.n_pad) for a in arrays]
+
+
+def _unpermute(ctx: WindowCtx, Up: torch.Tensor) -> torch.Tensor:
+    return Up.index_select(0, ctx.inv_order.long())
+
+
+def solve_stationary_windowed(
+    ctx: WindowCtx,
+    Y: torch.Tensor,
+    psi: torch.Tensor,
+    B: torch.Tensor,
+    lam: EnergyParams,
+    tol: float = 1e-4,
+    max_iters: int = 64,
+    x0: Optional[torch.Tensor] = None,
+):
+    """Stationary solve with the windowed Laplacian matvec (no chain prior)."""
+    ops = [Y, B[:, None]] + ([x0] if x0 is not None else [])
+    perm = _permuted_operands(ctx, ops)
+    Yp, Bp = perm[0], perm[1][:, 0]
+    x0p = perm[2] if x0 is not None else Yp
+    rhs = lam.lamG * Yp + lam.lamQ * (Bp[:, None] * psi[None, :])
+    M_diag = lam.lamG + lam.lamQ * Bp
+
+    def M_mul(X):
+        return (
+            lam.lamG * X
+            + lam.lamC * lap_matvec_windowed(ctx.plan, ctx.oh, X)
+            + lam.lamQ * (Bp[:, None] * X)
+        )
+
+    Up, iters, res = cg_solve(M_mul, rhs, x0=x0p, M_diag=M_diag, tol=tol, max_iters=max_iters)
+    return _unpermute(ctx, Up), iters, res
+
+
+def solve_stationary_windowed_fused(
+    ctx: WindowCtx,
+    Y: torch.Tensor,
+    psi: torch.Tensor,
+    B: torch.Tensor,
+    lam: EnergyParams,
+    tol: float = 1e-4,
+    max_iters: int = 64,
+    x0: Optional[torch.Tensor] = None,
+):
+    """Stationary solve through the fused operator (λ_C ≠ 0, which the
+    lattice's router guarantees): one K4 launch per CG iteration gives
+    M p / λ_C and ⟨p, Mp⟩ / λ_C."""
+    ops = [Y, B[:, None]] + ([x0] if x0 is not None else [])
+    perm = _permuted_operands(ctx, ops)
+    Yp, Bp = perm[0], perm[1][:, 0]
+    x0p = perm[2] if x0 is not None else Yp
+    rhs = lam.lamG * Yp + lam.lamQ * (Bp[:, None] * psi[None, :])
+    M_diag = lam.lamG + lam.lamQ * Bp
+    s = lam.lamC
+    g = ((lam.lamG + lam.lamC + lam.lamQ * Bp) / s)[:, None]
+
+    def K_mul(X):
+        return k_matvec_windowed(ctx.plan, ctx.oh, X, g)
+
+    Up, iters, res = cg_solve_kpap(K_mul, s, rhs, x0=x0p, M_diag=M_diag, tol=tol, max_iters=max_iters)
+    return _unpermute(ctx, Up), iters, res
+
+
+def settle_step_windowed_fused(
+    ctx: WindowCtx,
+    U: torch.Tensor,
+    Y: torch.Tensor,
+    psi: torch.Tensor,
+    B: torch.Tensor,
+    lam: EnergyParams,
+    dt: float = 1.0,
+    tol: float = 1e-3,
+    max_iters: int = 12,
+    x0: Optional[torch.Tensor] = None,
+    use_jacobi: bool = True,
+):
+    """Implicit Euler step through the fused operator (dt·λ_C ≠ 0, which the
+    lattice's router guarantees): A = I + dt·M = s·K with s = dt·λ_C and the
+    diagonal folded into K4's g."""
+    dt = float(dt)
+    ops = [U, Y, B[:, None]] + ([x0] if x0 is not None else [])
+    perm = _permuted_operands(ctx, ops)
+    Up0, Yp, Bp = perm[0], perm[1], perm[2][:, 0]
+    x0p = perm[3] if x0 is not None else Up0
+    rhs = Up0 + dt * (lam.lamG * Yp + lam.lamQ * (Bp[:, None] * psi[None, :]))
+    s = dt * lam.lamC
+    g = ((1.0 + dt * (lam.lamG + lam.lamQ * Bp) + dt * lam.lamC) / s)[:, None]
+    M_diag = 1.0 + dt * (lam.lamG + lam.lamQ * Bp) if use_jacobi else None
+
+    def K_mul(X):
+        return k_matvec_windowed(ctx.plan, ctx.oh, X, g)
+
+    Up, iters, res = cg_solve_kpap(K_mul, s, rhs, x0=x0p, M_diag=M_diag, tol=tol, max_iters=max_iters)
+    return _unpermute(ctx, Up), iters, res
+
+
+def settle_step_windowed(
+    ctx: WindowCtx,
+    U: torch.Tensor,
+    Y: torch.Tensor,
+    psi: torch.Tensor,
+    B: torch.Tensor,
+    lam: EnergyParams,
+    dt: float = 1.0,
+    tol: float = 1e-3,
+    max_iters: int = 12,
+    x0: Optional[torch.Tensor] = None,
+    use_jacobi: bool = True,
+):
+    """Implicit Euler step with the windowed Laplacian matvec (no chain)."""
+    dt = float(dt)
+    ops = [U, Y, B[:, None]] + ([x0] if x0 is not None else [])
+    perm = _permuted_operands(ctx, ops)
+    Up0, Yp, Bp = perm[0], perm[1], perm[2][:, 0]
+    x0p = perm[3] if x0 is not None else Up0
+    rhs = Up0 + dt * (lam.lamG * Yp + lam.lamQ * (Bp[:, None] * psi[None, :]))
+
+    def A_mul(X):
+        return X + dt * (
+            lam.lamG * X
+            + lam.lamC * lap_matvec_windowed(ctx.plan, ctx.oh, X)
+            + lam.lamQ * (Bp[:, None] * X)
+        )
+
+    M_diag = 1.0 + dt * (lam.lamG + lam.lamQ * Bp) if use_jacobi else None
+    Up, iters, res = cg_solve(A_mul, rhs, x0=x0p, M_diag=M_diag, tol=tol, max_iters=max_iters)
+    return _unpermute(ctx, Up), iters, res
+
+
+_CHUNKED = (
+    "{name} (the column-chunked windowed solve) is not ported to "
+    "oscillink_tpu_torch yet (ROADMAP.md queue A item 9)"
+)
+
+
+def solve_stationary_windowed_chunked(*args, **kwargs):
+    raise NotImplementedError(_CHUNKED.format(name="solve_stationary_windowed_chunked"))
+
+
+def settle_step_windowed_chunked(*args, **kwargs):
+    raise NotImplementedError(_CHUNKED.format(name="settle_step_windowed_chunked"))

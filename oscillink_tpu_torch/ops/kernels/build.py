@@ -25,7 +25,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "load_library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load_library"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -69,26 +69,42 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-@functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, compiled first unless a
-    library of the same hash exists.  Raises with the compiler's output when
-    the build fails; ``nvcc``'s output is kept beside the library as
-    ``<name>-<hash>.log``."""
-    src, lib = _target(name)
-    if not lib.exists():
+def build(names: list[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose library is
+    missing, one ``nvcc`` per source, all started together.  Raises with the
+    compiler's output of each failed build; ``nvcc``'s output is kept beside
+    the library as ``<name>-<hash>.log``."""
+    jobs = []
+    for name in names:
+        src, lib = _target(name)
+        if lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        lib.with_suffix(".log").write_text(proc.stdout)
+        jobs.append((name, lib, tmp, proc))
+    failed = []
+    for name, lib, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(out)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        # atomic publish: a concurrent build of the same hash either sees no
-        # library or the whole one
-        os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            # atomic publish: a concurrent build of the same hash either sees
+            # no library or the whole one
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, compiled first (`build`)
+    unless a library of the same hash exists."""
+    build([name])
+    return ctypes.CDLL(str(_target(name)[1]))

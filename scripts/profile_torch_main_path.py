@@ -1,5 +1,8 @@
 """Where the time goes on the card: a torch.profiler breakdown of the port's
-main path (settle -> U* -> light receipt) at the chip_smoke.py cells.
+main path (settle -> U* -> light receipt) at the chip_smoke.py cells: the
+gather path at the headline and corpus shapes, and the windowed tier
+(OSCILLINK_WINDOWED_MATVEC=1, kernel K4) on chip_smoke.py's locality-ordered
+corpus of the same shape.
 
     python3 scripts/profile_torch_main_path.py
 
@@ -25,10 +28,15 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import CORPUS, HEADLINE, data  # noqa: E402
+from chip_smoke import CORPUS, HEADLINE, data, env, locality_corpus  # noqa: E402
 from oscillink_tpu_torch import Oscillink  # noqa: E402
 
-CELLS = {"headline": HEADLINE, "corpus": CORPUS}
+# cell: (shape, corpus generator, environment)
+CELLS = {
+    "headline": (HEADLINE, data, {}),
+    "corpus": (CORPUS, data, {}),
+    "windowed_corpus": (CORPUS, locality_corpus, {"OSCILLINK_WINDOWED_MATVEC": "1"}),
+}
 
 
 def _solve_pass(lat) -> dict:
@@ -84,11 +92,13 @@ def _window(fn) -> tuple[dict, object]:
     }, out
 
 
-def profile_cell(name: str, n: int, d: int, k: int) -> dict:
-    Y, psi = data(n, d)
-    _solve_pass(_lattice(Y, psi, k))  # warm-up on a lattice of its own
-    build, lat = _window(lambda: _lattice(Y, psi, k))  # its U* is not cached
-    solve, iters = _window(lambda: _solve_pass(lat))
+def profile_cell(name: str, shape: dict, corpus, envs: dict) -> dict:
+    n, d, k = shape["n"], shape["d"], shape["k"]
+    Y, psi = corpus(n, d)
+    with env(**envs):
+        _solve_pass(_lattice(Y, psi, k))  # warm-up on a lattice of its own
+        build, lat = _window(lambda: _lattice(Y, psi, k))  # its U* is not cached
+        solve, iters = _window(lambda: _solve_pass(lat))
     return {"cell": name, "n": n, "d": d, "k": k, **iters, "build": build, "solve": solve}
 
 
@@ -97,8 +107,8 @@ def main() -> int:
         print("profile_torch_main_path: no CUDA card", file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0), flush=True)
-    for name, cell in CELLS.items():
-        print(json.dumps(profile_cell(name, cell["n"], cell["d"], cell["k"])), flush=True)
+    for name, (shape, corpus, envs) in CELLS.items():
+        print(json.dumps(profile_cell(name, shape, corpus, envs)), flush=True)
     return 0
 
 

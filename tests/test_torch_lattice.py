@@ -252,7 +252,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m.startswith('jaxlib')"
         " or m == 'oscillink_tpu' or m.startswith('oscillink_tpu.')]\n"
-        "print(json.dumps(bad))\n"
+        "ours = sorted(m for m in sys.modules if m.startswith('oscillink_tpu_torch'))\n"
+        "print(json.dumps([bad, ours]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -260,7 +261,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    bad, ours = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    # the windowed tier's modules are among those walked
+    assert {"oscillink_tpu_torch.ops.kernels.window_spmv", "oscillink_tpu_torch.ops.kernels.build",
+            "oscillink_tpu_torch.models.coherence", "oscillink_tpu_torch.interop"} <= set(ours)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

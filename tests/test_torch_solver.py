@@ -1,4 +1,5 @@
-"""CG, stationary solve and settle step of the PyTorch port against the JAX package.
+"""CG (classic and `cg_solve_kpap`), stationary solve and settle step of the
+PyTorch port against the JAX package.
 
 Both packages run on the same graph (built by the JAX package, carried
 across with ``oscillink_tpu_torch.interop``) and the same numpy inputs.  The
@@ -18,10 +19,12 @@ from oscillink_tpu.models import coherence as jcoh  # noqa: E402
 from oscillink_tpu.ops.graph import build_graph as jbuild_graph  # noqa: E402
 from oscillink_tpu.ops.path import build_path_graph as jbuild_path  # noqa: E402
 from oscillink_tpu.ops.solver import cg_solve as jcg_solve  # noqa: E402
+from oscillink_tpu.ops.solver import cg_solve_kpap as jcg_solve_kpap  # noqa: E402
 from oscillink_tpu_torch import interop  # noqa: E402
 from oscillink_tpu_torch.models import coherence as tcoh  # noqa: E402
 from oscillink_tpu_torch.ops.path import build_path_graph as tbuild_path  # noqa: E402
 from oscillink_tpu_torch.ops.solver import cg_solve as tcg_solve  # noqa: E402
+from oscillink_tpu_torch.ops.solver import cg_solve_kpap as tcg_solve_kpap  # noqa: E402
 
 LAMS = (1.0, 0.5, 4.0, 0.2)
 
@@ -139,3 +142,69 @@ def test_path_graph_matches_jax(chain, weights):
     np.testing.assert_allclose(
         tpath_mv(pt, _t(X)).numpy(), np.asarray(jpath_mv(pj, jnp.asarray(X))), rtol=1e-6, atol=1e-6
     )
+
+
+def _dense_spd(seed=1, n=96, d=8):
+    """tests/test_fused_windowed.py's dense SPD system A = Q Q^T / n + 2 I."""
+    rng = np.random.default_rng(seed)
+    Q = rng.standard_normal((n, n)).astype(np.float32)
+    A = (Q @ Q.T / n + 2.0 * np.eye(n)).astype(np.float32)
+    b = rng.standard_normal((n, d)).astype(np.float32)
+    x0 = rng.standard_normal((n, d)).astype(np.float32)
+    return A, b, x0
+
+
+@pytest.mark.parametrize("tol,max_iters", [(1e-5, 80), (1e-3, 80), (1e-6, 4)])
+@pytest.mark.parametrize("jacobi,warm", [(True, False), (False, True)])
+def test_cg_solve_kpap_matches_jax(tol, max_iters, jacobi, warm):
+    """A = s K with the operator's own denominator: the same iteration count
+    as the JAX package's cg_solve_kpap, x within 1e-5."""
+    A, b, x0 = _dense_spd()
+    s = 0.7
+    M = np.diag(A).copy() if jacobi else None
+    Aj, At = jnp.asarray(A), _t(A)
+
+    def kj(x):
+        kx = (Aj @ x) * (1.0 / s)
+        return kx, jnp.sum(x * kx, axis=0)
+
+    def kt(x):
+        kx = (At @ x) * (1.0 / s)
+        return kx, torch.sum(x * kx, dim=0)
+
+    xj, itj, resj = jcg_solve_kpap(
+        kj, s, jnp.asarray(b), x0=jnp.asarray(x0) if warm else None,
+        M_diag=None if M is None else jnp.asarray(M), tol=tol, max_iters=max_iters,
+    )
+    xt, itt, rest = tcg_solve_kpap(
+        kt, s, _t(b), x0=_t(x0) if warm else None, M_diag=None if M is None else _t(M),
+        tol=tol, max_iters=max_iters,
+    )
+    assert itt == int(itj)
+    np.testing.assert_allclose(rest, float(resj), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-5, atol=1e-5)
+
+
+def test_cg_solve_kpap_scales_only_the_scalars():
+    """The initial residual is b - (K x0) s; inside the loop s scales the
+    scalars.  At least one iteration runs from an exact start, and the
+    solution is that of cg_solve on A = s K."""
+    A, b, _ = _dense_spd(seed=2, n=40, d=3)
+    s = 2.5
+    At = _t(A)
+    seen = []
+
+    def kt(x):
+        seen.append(x.clone())
+        kx = (At @ x) / s
+        return kx, torch.sum(x * kx, dim=0)
+
+    exact = torch.linalg.solve(At.double(), _t(b).double()).float()
+    x, it, res = tcg_solve_kpap(kt, s, _t(b), x0=exact, tol=1.0)
+    assert it == 1 and res <= 1e-4 and len(seen) == 2
+    assert torch.equal(seen[0], exact)
+    x_kpap, it_kpap, _ = tcg_solve_kpap(kt, s, _t(b), M_diag=torch.diagonal(At), tol=1e-6)
+    x_cg, it_cg, _ = tcg_solve(lambda X: At @ X, _t(b), M_diag=torch.diagonal(At), tol=1e-6)
+    assert abs(it_kpap - it_cg) <= 1
+    np.testing.assert_allclose(x_kpap.numpy(), x_cg.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(x_kpap.numpy(), exact.numpy(), rtol=1e-4, atol=1e-5)
