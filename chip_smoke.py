@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``) and K2-K4
-(``csrc/window_spmv.cu``) from the checkout, one ``nvcc`` per source, and
-holds each against its plain PyTorch version.  Then it drives the lattice's
-paths through the public entry points:
+Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2-K4
+(``csrc/window_spmv.cu``) and K5 (``csrc/bucket_gather.cu``) from the
+checkout, one ``nvcc`` per source, and holds each against its plain PyTorch
+version.  Then it drives the paths through the public entry points:
 
 * the gather path (K1): quickstart and headline against the port's CPU path,
   and the 131072 x 768 x k8 corpus;
@@ -13,7 +13,9 @@ paths through the public entry points:
   131072 x 768 x k8 corpus through K4, held to the gather path on the same
   corpus; a clustered corpus with stragglers through K4 (fused) and K3
   (``OSCILLINK_WINDOWED_FUSED=0``); and a D = 97 lattice through K2 and its
-  straggler epilogue, each held to the port's CPU path.
+  straggler epilogue, each held to the port's CPU path;
+* the bucket-shuffle probe (K5, ``oscillink_tpu_torch.benchmarks.
+  probe_bucket_gather``) at its full size, 126976 x 768 with 1015808 edges.
 
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
@@ -40,8 +42,10 @@ import numpy as np
 import torch
 
 from oscillink_tpu_torch import Oscillink
+from oscillink_tpu_torch.benchmarks import probe_bucket_gather as probe
 from oscillink_tpu_torch.core.lattice import _locality_order
 from oscillink_tpu_torch.ops.graph import build_graph, lap_matvec
+from oscillink_tpu_torch.ops.kernels import bucket_gather as bg
 from oscillink_tpu_torch.ops.kernels import build as kbuild
 from oscillink_tpu_torch.ops.kernels import spmv
 from oscillink_tpu_torch.ops.kernels import window_spmv as tw
@@ -76,6 +80,9 @@ K_WIDE = dict(n=1000, d=64, k=40)  # more neighbours than one warp's 32 lanes
 WIN_RAGGED = dict(n=4099, d=97, k=8)  # N not a multiple of 384, D not of 4
 STRAGGLERS = dict(n=16384, d=768, k=8)
 NARROW = dict(n=8192, d=97, k=8)
+# K5: the probe's check shape, and D = 97 (the scalar path) with e_pad = ETILE
+K5_SHAPES = (("check", 2, 128, 2 * bg.ETILE), ("ragged", 3, 97, bg.ETILE))
+PROBE_D = 768  # the probe's full width; its 31 buckets are probe_tensors' default
 
 
 def check(cond: bool, msg: str) -> None:
@@ -311,12 +318,14 @@ def env(**values: str):
 
 def reset_counts() -> None:
     spmv.launches = 0
+    bg.launches = 0
     for _, _, fn, _ in WINDOW_KERNELS:
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {"K1": spmv.launches, **{name: fn.launches for name, _, fn, _ in WINDOW_KERNELS}}
+    return {"K1": spmv.launches, **{name: fn.launches for name, _, fn, _ in WINDOW_KERNELS},
+            "K5": bg.launches}
 
 
 def bench_graph(n: int, k: int, seed: int = 0):
@@ -682,6 +691,61 @@ def card_vs_cpu(tag: str, Y, psi, k: int, kernel: str) -> tuple[dict, Oscillink]
     return {"launches": counts[kernel], **gpu}, lat
 
 
+# -- the bucket-shuffle probe (kernel K5) ---------------------------------------
+
+
+def k5_vs_plain(X, li, w, n_buckets: int, tag: str) -> float:
+    """K5 against its plain version on the same inputs: bit-equal, since
+    each element is one multiply on both sides."""
+    out = bg.bucket_gather_cuda(X, li, w, n_buckets)
+    ref = bg.bucket_gather_ref(X, li, w, n_buckets)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(torch.equal(out, ref), f"K5 != plain at {tag} (must be bit-equal): max abs {err}")
+    return err
+
+
+def bucket_gather_phase() -> dict:
+    """K5 held bit-equal to its plain version at the probe's check shape, a
+    ragged one and the full probe shape; then the port's probe at full size,
+    every launch count set to 0 just before it and read just after.
+    Returns K5's entry of the kernels line."""
+    t0 = time.perf_counter()
+    errs = {}
+    for tag, n_buckets, d, e_pad in K5_SHAPES:
+        X, li, w = (torch.from_numpy(a).cuda() for a in probe.random_case(n_buckets, d, e_pad))
+        errs[tag] = k5_vs_plain(X, li, w, n_buckets, tag)
+    errs["probe_check"] = probe.check_correct("cuda")
+    inputs = probe.probe_tensors("cuda", PROBE_D)
+    errs["probe"] = k5_vs_plain(inputs["X"], inputs["local_idx"], inputs["w"],
+                                inputs["n_buckets"], "probe shape")
+    reset_counts()
+    res = probe.measure("cuda", inputs=inputs)
+    counts = read_counts()
+    del inputs
+    emit("bucket_gather", max_abs_err=errs, launches=counts, phase_s=sync_ms(t0) / 1e3, **res)
+    check(counts["K5"] > 0, "K5 was not launched on the probe path")
+    check(res["embedding_bag_max_abs_diff"] <= 1e-6,
+          f"library yardstick disagrees with K5: {res['embedding_bag_max_abs_diff']}")
+    return {
+        "name": "bucket_gather",
+        "route": "cuda",
+        "source": "oscillink_tpu_torch/csrc/bucket_gather.cu",
+        "replaces": "benchmarks/probe_bucket_gather.py:65",
+        "launches": counts["K5"],
+        "max_abs_err": max(errs.values()),
+        "ms": res["bucket_gather_ms"],
+        "plain_ms": res["bucket_gather_plain_ms"],
+        "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"],
+        "library_ms": res["embedding_bag_ms"],
+        "shape": res["config"],
+        "effective_GBps": res["bucket_gather_effective_gbps"],
+        "library_max_abs_err": res["embedding_bag_max_abs_diff"],
+        "probe_decision": res["decision"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -694,8 +758,8 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
 
-    # 1. build K1 and K2-K4 from the checkout's sources, one nvcc per source
-    sources = ("spmv", "window_spmv")
+    # 1. build K1, K2-K4 and K5 from the checkout's sources, one nvcc per source
+    sources = ("spmv", "window_spmv", "bucket_gather")
     t0 = time.perf_counter()
     kbuild.build(list(sources))
     build_s = time.perf_counter() - t0
@@ -736,6 +800,11 @@ def main() -> int:
         if shape is CORPUS:
             win_timing = window_timing(case)
         del case
+    torch.cuda.empty_cache()
+
+    # 3b. K5 against its plain version, then the bucket-shuffle probe at full
+    # size; its ~13 GB are freed before the lattice phases
+    k5_row = bucket_gather_phase()
     torch.cuda.empty_cache()
 
     # 4. quickstart: the card against the port's own CPU path
@@ -854,7 +923,7 @@ def main() -> int:
         "shape": "bench graph N=131072 (Npad 131328) D=768 K=8, W=R=384, 3 windows, bf16x3",
         "k1_same_graph_ms": win_timing["k1_ms"],
         **({"pap_max_abs_err": win_errs["K4_pap"]} if key == "K4" else {}),
-    } for key, kname, _, replaces in WINDOW_KERNELS]}), flush=True)
+    } for key, kname, _, replaces in WINDOW_KERNELS] + [k5_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

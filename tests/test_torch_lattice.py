@@ -263,9 +263,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     bad, ours = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
-    # the windowed tier's modules are among those walked
+    # the windowed tier's modules, K5 and its probe are among those walked
     assert {"oscillink_tpu_torch.ops.kernels.window_spmv", "oscillink_tpu_torch.ops.kernels.build",
-            "oscillink_tpu_torch.models.coherence", "oscillink_tpu_torch.interop"} <= set(ours)
+            "oscillink_tpu_torch.models.coherence", "oscillink_tpu_torch.interop",
+            "oscillink_tpu_torch.ops.kernels.bucket_gather",
+            "oscillink_tpu_torch.benchmarks.probe_bucket_gather"} <= set(ours)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():
