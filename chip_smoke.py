@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2-K4
-(``csrc/window_spmv.cu``) and K5 (``csrc/bucket_gather.cu``) from the
-checkout, one ``nvcc`` per source, and holds each against its plain PyTorch
-version.  Then it drives the paths through the public entry points:
+Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2 and K3
+(``csrc/window_spmv.cu``), K4 (``csrc/window_spmv3f.cu``) and K5
+(``csrc/bucket_gather.cu``) from the checkout, one ``nvcc`` per source, all
+started together, and holds each against its plain PyTorch version (K4
+against the one-hot form and its own gather form, and bit-equal from launch
+to launch).  Then it drives the paths through the public entry points:
 
 * the gather path (K1): quickstart and headline against the port's CPU path,
   and the 131072 x 768 x k8 corpus;
@@ -57,18 +59,30 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL = 1e-5  # kernel vs plain: same K order, the gap is FMA contraction only
-# K2-K4 vs plain, relative to max|plain|: both take the same bf16-rounded
-# operands and sum exact products in f32, only in another order
+# K2-K4 vs plain, relative to max|plain|: K2/K3 take the same bf16-rounded
+# operands and sum exact products in f32, only in another order; K4's
+# gather-form products differ from the one-hot form's bf16 passes by about
+# 2^-16 each (csrc/window_spmv3f.cu)
 WIN_TOL = 1e-5
 PAP_TOL = 1e-4  # K4's column partials: sums over 384 rows, then over blocks
+# K4 vs its gather-form plain version: the same products in the same order,
+# relative to max|plain|; only FMA contraction differs.  The partials sum
+# 384 rows per block in the kernel's lane-and-warp order, the plain version
+# in torch.sum's.
+GATHER_TOL = 1e-6
+GATHER_PAP_TOL = 1e-5
 LATTICE_TOL = 1e-5  # deltaH, card vs the port's CPU path
 WINDOWED_VS_GATHER_TOL = 2e-3  # deltaH, windowed vs gather (tests/test_fused_windowed.py)
 WIN, WIN_R, N_WIN = 384, 384, 3  # the lattice's window geometry
 TIER_PASSES = {"bf16x3": 3, "bf16x2": 2, "oh16": 2, "dma16": 2, "bf16": 1}
+# key, name, wrapper, the TPU kernel it replaces, its CUDA source
 WINDOW_KERNELS = (
-    ("K2", "window_spmv", tw.window_spmv_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:409"),
-    ("K3", "window_spmv3", tw.window_spmv3_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:457"),
-    ("K4", "window_spmv3f", tw.window_spmv3f_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:594"),
+    ("K2", "window_spmv", tw.window_spmv_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:409",
+     "oscillink_tpu_torch/csrc/window_spmv.cu"),
+    ("K3", "window_spmv3", tw.window_spmv3_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:457",
+     "oscillink_tpu_torch/csrc/window_spmv.cu"),
+    ("K4", "window_spmv3f", tw.window_spmv3f_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:594",
+     "oscillink_tpu_torch/csrc/window_spmv3f.cu"),
 )
 
 QUICK = dict(n=120, d=128, k=6, chain=[2, 5, 7, 9], lamP=0.2)
@@ -78,6 +92,10 @@ RAGGED = dict(n=4099, d=97, k=5)
 K_ONE = dict(n=333, d=130, k=1)
 K_WIDE = dict(n=1000, d=64, k=40)  # more neighbours than one warp's 32 lanes
 WIN_RAGGED = dict(n=4099, d=97, k=8)  # N not a multiple of 384, D not of 4
+# K4's other geometries: the JAX package's W = 512 / R = 256 / 2 windows, and
+# 40 slots a row (more than a warp's lanes; the lists take two row passes)
+WIN_512 = dict(n=4099, d=128, k=8, W=512, R=256, n_win=2)
+WIN_K40 = dict(n=4099, d=97, k=40)
 STRAGGLERS = dict(n=16384, d=768, k=8)
 NARROW = dict(n=8192, d=97, k=8)
 # K5: the probe's check shape, and D = 97 (the scalar path) with e_pad = ETILE
@@ -319,12 +337,12 @@ def env(**values: str):
 def reset_counts() -> None:
     spmv.launches = 0
     bg.launches = 0
-    for _, _, fn, _ in WINDOW_KERNELS:
+    for _, _, fn, _, _ in WINDOW_KERNELS:
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {"K1": spmv.launches, **{name: fn.launches for name, _, fn, _ in WINDOW_KERNELS},
+    return {"K1": spmv.launches, **{name: fn.launches for name, _, fn, _, _ in WINDOW_KERNELS},
             "K5": bg.launches}
 
 
@@ -338,61 +356,81 @@ def bench_graph(n: int, k: int, seed: int = 0):
 
 
 def window_case(shape: dict, seed: int) -> dict:
-    """The bench graph at ``shape`` with the lattice's window geometry: its
-    plan (the device builder, rows in their own order, a straggler cap that
-    cannot truncate) and one-hots on the card, X (padding rows zero) and a
-    diagonal g."""
+    """The bench graph at ``shape`` with its window geometry (the lattice's
+    unless ``shape`` names W, R and n_win): its plan (the device builder,
+    rows in their own order, a straggler cap that cannot truncate) and
+    one-hots on the card, X (padding rows zero) and a diagonal g."""
     n, d, k = shape["n"], shape["d"], shape["k"]
+    W, R, n_win = shape.get("W", WIN), shape.get("R", WIN_R), shape.get("n_win", N_WIN)
     idx, wn = bench_graph(n, k, seed)
     idx_t, wn_t = torch.from_numpy(idx).cuda(), torch.from_numpy(wn).cuda()
     # a block's padded straggler segment is at most R * k entries
-    seg_bound = -(-WIN_R * k // 128) * 128
-    cap = -(-(n * k + 8 * -(-n // WIN_R) + seg_bound) // 128) * 128
+    seg_bound = -(-R * k // 128) * 128
+    cap = -(-(n * k + 8 * -(-n // R) + seg_bound) // 128) * 128
     plan, cov_t, n_strag_t, fits_t = tw.build_window_plan_device(
-        idx_t, wn_t, torch.arange(n, device="cuda"), WIN, WIN_R, cap, seg_bound, N_WIN)
+        idx_t, wn_t, torch.arange(n, device="cuda"), W, R, cap, seg_bound, n_win)
     check(bool(fits_t) and int(n_strag_t) <= cap, f"bench-graph plan refused at {shape}")
     s_max = tw.plan_s_max(plan)
     plan = tw.right_size_stragglers(plan, int(plan.strag_off[-1]), s_max)
-    oh = tw.build_onehot(plan, WIN, s_max)
+    oh = tw.build_onehot(plan, W, s_max)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     X = torch.randn(n, d, generator=gen, device="cuda")
     cnt = plan.strag_cnt.cpu().numpy()
     return {
-        "idx": idx_t, "wn": wn_t, "plan": plan, "oh": oh, "s_max": s_max,
+        "idx": idx_t, "wn": wn_t, "plan": plan, "oh": oh, "s_max": s_max, "geo": (W, R),
         "X": X, "Xpad": tw.pad_rows(X, plan.n_pad),
         "g": 1.5 + torch.rand(plan.n_pad, 1, generator=gen, device="cuda"),
         "nnz": {"main": int(torch.count_nonzero(oh.main)),
                 "strag": int(torch.count_nonzero(oh.strag)),
-                "strag_w": int(torch.count_nonzero(plan.strag_w))},
-        "info": {**shape, "coverage": float(cov_t), "s_max": s_max, "n_pad": plan.n_pad,
+                "strag_w": int(torch.count_nonzero(plan.strag_w)),
+                "wnl": int(torch.count_nonzero(plan.wnl)),
+                "strag_seg": int(np.minimum(cnt, s_max).sum())},
+        "info": {"W": W, "R": R, "n_win": n_win, **shape, "coverage": float(cov_t),
+                 "s_max": s_max, "n_pad": plan.n_pad,
                  "blocks": len(cnt), "blocks_with_stragglers": int((cnt > 0).sum())},
     }
 
 
 def window_calls(case: dict, tier: str) -> dict:
     """(kernel, plain) callables of K2, K3 and K4 at ``tier``; the one-hot is
-    stored in bf16 under oh16/dma16, as the lattice stores it."""
+    stored in bf16 under oh16/dma16, as the lattice stores it.  K4 reads the
+    plan and no one-hot; its plain version here is the one-hot form."""
     plan, oh, X, g, s_max = case["plan"], case["oh"], case["Xpad"], case["g"], case["s_max"]
     main = oh.main.to(torch.bfloat16) if tier in ("oh16", "dma16") else oh.main
-    geo = (WIN, WIN_R)
+    geo = case["geo"]
     return {
         "K2": (lambda: tw.window_spmv_cuda(plan, main, X, *geo, tier),
                lambda: tw.window_spmv_ref(plan, main, X, *geo, tier)),
         "K3": (lambda: tw.window_spmv3_cuda(plan, main, oh.strag, X, *geo, s_max, tier),
                lambda: tw.window_spmv3_ref(plan, main, oh.strag, X, *geo, s_max, tier)),
-        "K4": (lambda: tw.window_spmv3f_cuda(plan, main, oh.strag, X, g, *geo, s_max, tier),
+        "K4": (lambda: tw.window_spmv3f_cuda(plan, X, g, *geo, s_max, tier),
                lambda: tw.window_spmv3f_ref(plan, main, oh.strag, X, g, *geo, s_max, tier)),
     }
 
 
+def k4_gather_plain(case: dict, tier: str):
+    """K4's gather-form plain version on the case's inputs."""
+    return tw.window_spmv3f_gather_ref(case["plan"], case["Xpad"], case["g"], *case["geo"],
+                                       case["s_max"], tier)
+
+
 def window_vs_plain(case: dict, tier: str) -> dict:
-    """K2, K3, K4 (and K4's column partials) against their plain versions."""
+    """K2, K3, K4 (and K4's column partials) against their plain versions;
+    K4 also against its gather form, and two K4 launches bit-equal."""
     errs = {}
     for name, (kern, plain) in window_calls(case, tier).items():
         out, ref = kern(), plain()
         pairs = [(name, out, ref, WIN_TOL)]
         if name == "K4":
-            pairs = [(name, out[0], ref[0], WIN_TOL), ("K4_pap", out[1], ref[1], PAP_TOL)]
+            gref = k4_gather_plain(case, tier)
+            pairs = [(name, out[0], ref[0], WIN_TOL), ("K4_pap", out[1], ref[1], PAP_TOL),
+                     ("K4_gather", out[0], gref[0], GATHER_TOL),
+                     ("K4_gather_pap", out[1], gref[1], GATHER_PAP_TOL)]
+            again = kern()
+            torch.cuda.synchronize()
+            check(torch.equal(out[0], again[0]) and torch.equal(out[1], again[1]),
+                  f"K4 differs from launch to launch ({tier}, {case['info']})")
+            del gref, again
         for key, o, r, tol in pairs:
             torch.cuda.synchronize()
             err = float((o - r).abs().max())
@@ -403,18 +441,41 @@ def window_vs_plain(case: dict, tier: str) -> dict:
     return errs
 
 
+def k4_bound(case: dict) -> dict:
+    """The least time for one K4 apply: X read once (the straggler source
+    rows are rows of X), out written once, g, idxl and wnl, cs, the straggler
+    entries of the blocks that have any, the block counts and offsets, and
+    the partials, over the HBM rate; against one f32 multiply-add per live
+    slot or straggler and column plus the g, x ⊙ out and partial work, over
+    the f32 peak."""
+    plan, nnz = case["plan"], case["nnz"]
+    n_pad, d = case["Xpad"].shape
+    blocks = plan.n_blocks
+    nbytes = (2 * n_pad * d * 4 + n_pad * 4 + 2 * plan.idxl.numel() * 4 + plan.cs.numel() * 4
+              + nnz["strag_seg"] * 12 + 2 * blocks * 4 + blocks * d * 4)
+    ops = 2 * (nnz["wnl"] + nnz["strag_w"]) * d + 3 * n_pad * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes}
+
+
 def window_bound(case: dict, name: str, tier: str = "bf16x3") -> dict:
-    """The least time for one apply of ``name`` (``bound_ms``, ``bound_by``):
+    """The least time for one apply of K2 or K3 (``bound_ms``, ``bound_by``):
     each of the kernel's inputs read once and each output written once over
     the HBM rate, against the products this plan's data needs — one per
     nonzero one-hot entry and column, in the tier's bf16 passes — over the
     tensor cores' peak, plus the f32 elementwise work.  Apart from it,
     ``dense_ceiling_ms``: the dense one-hot products the design computes
     (most of them by a zero weight) over the same peak.  Straggler terms
-    count only the blocks of this plan that have stragglers."""
+    count only the blocks of this plan that have stragglers.  K4 reads no
+    one-hot: `k4_bound`."""
+    if name == "K4":
+        return k4_bound(case)
     plan, s_max, nnz = case["plan"], case["s_max"], case["nnz"]
     n_pad, d = case["Xpad"].shape
-    cols = plan.n_windows * WIN
+    W, R = case["geo"]
+    cols = plan.n_windows * W
     blocks = plan.n_blocks
     strag_blocks = case["info"]["blocks_with_stragglers"]
     passes, s_passes = TIER_PASSES[tier], (1 if tier == "dma16" else 2)
@@ -425,14 +486,11 @@ def window_bound(case: dict, name: str, tier: str = "bf16x3") -> dict:
     f32_ops = n_pad * d
     if name != "K2":
         c_item = 2 if tier == "dma16" else 4
-        nbytes += (strag_blocks * WIN_R * s_max * 2 + plan.strag_w.numel() * d * c_item
+        nbytes += (strag_blocks * R * s_max * 2 + plan.strag_w.numel() * d * c_item
                    + 2 * blocks * 4)
         needed += s_passes * 2 * nnz["strag"] * d
-        dense += s_passes * 2 * strag_blocks * WIN_R * s_max * d
+        dense += s_passes * 2 * strag_blocks * R * s_max * d
         f32_ops += nnz["strag_w"] * d  # the contributions strag_w * X[strag_src]
-    if name == "K4":
-        nbytes += n_pad * 4 + blocks * d * 4
-        f32_ops += 3 * n_pad * d
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = needed / BF16_FLOPS + f32_ops / F32_FLOPS
     return {
@@ -445,8 +503,9 @@ def window_bound(case: dict, name: str, tier: str = "bf16x3") -> dict:
 def window_timing(case: dict) -> dict:
     """K2-K4 at the default tier (bf16x3) with CUDA events, beside their
     plain versions, their bounds, torch.sparse.mm of the same operator as a
-    CSR matrix, and K1 on the same graph.  K3/K4 are timed through their
-    wrappers, the gather of the straggler contributions included."""
+    CSR matrix, and K1 on the same graph; K4 also beside its gather-form
+    plain version.  K3 is timed through its wrapper, the gather of the
+    straggler contributions included."""
     n = case["info"]["n"]
     X = case["X"]
     A = csr_of(case["idx"], case["wn"])
@@ -463,9 +522,10 @@ def window_timing(case: dict) -> dict:
     rows = {}
     for name, (kern, plain) in window_calls(case, "bf16x3").items():
         rows[name] = {
-            "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 3),
+            "ms": cuda_ms(kern, 50 if name == "K4" else 10), "plain_ms": cuda_ms(plain, 3),
             **window_bound(case, name), "library_ms": library_ms,
         }
+    rows["K4"]["gather_plain_ms"] = cuda_ms(lambda: k4_gather_plain(case, "bf16x3"), 3)
     emit("window_timing", **case["info"], tier="bf16x3", k1_same_graph_ms=k1_ms,
          k1_vs_k3_max_abs=k1_err, library_vs_k3_max_abs=lib_err, nnz=case["nnz"], **rows)
     return {"rows": rows, "k1_ms": k1_ms}
@@ -758,8 +818,9 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
 
-    # 1. build K1, K2-K4 and K5 from the checkout's sources, one nvcc per source
-    sources = ("spmv", "window_spmv", "bucket_gather")
+    # 1. build K1, K2-K3, K4 and K5 from the checkout's sources, one nvcc per
+    # source, all started together
+    sources = ("spmv", "window_spmv", "window_spmv3f", "bucket_gather")
     t0 = time.perf_counter()
     kbuild.build(list(sources))
     build_s = time.perf_counter() - t0
@@ -782,10 +843,11 @@ def main() -> int:
         cases[name] = kernel_vs_plain(shape, gen)
 
     # 3. K2-K4 against their plain versions, every precision tier, on the
-    # kernel-bench graph at the corpus shape and at a ragged N and D; then
+    # kernel-bench graph at the corpus shape, at a ragged N and D, in the
+    # W = 512 / R = 256 / 2-window geometry and at 40 slots a row; then
     # their times at the corpus shape (default tier)
     win_errs: dict = {}
-    for shape, seed in ((CORPUS, 0), (WIN_RAGGED, 1)):
+    for shape, seed in ((CORPUS, 0), (WIN_RAGGED, 1), (WIN_512, 2), (WIN_K40, 3)):
         case = window_case(shape, seed)
         info = case["info"]
         if shape is CORPUS:
@@ -794,7 +856,9 @@ def main() -> int:
         for tier in tw.PRECISION_TIERS:
             errs = window_vs_plain(case, tier)
             emit("window_vs_plain", **info, tier=tier, max_abs_err=errs,
-                 tol={"K2-K4": WIN_TOL, "K4_pap": PAP_TOL, "relative_to": "max|plain|"})
+                 tol={"K2-K4": WIN_TOL, "K4_pap": PAP_TOL, "K4_gather": GATHER_TOL,
+                      "K4_gather_pap": GATHER_PAP_TOL, "relative_to": "max|plain|"},
+                 k4_bit_equal_repeat=True)
             for key, err in errs.items():
                 win_errs[key] = max(win_errs.get(key, 0.0), err)
         if shape is CORPUS:
@@ -915,15 +979,17 @@ def main() -> int:
     }] + [{
         "name": kname,
         "route": "cuda",
-        "source": "oscillink_tpu_torch/csrc/window_spmv.cu",
+        "source": source,
         "replaces": replaces,
         "launches": win_launches[key],
         "max_abs_err": win_errs[key],
         **win_timing["rows"][key],
         "shape": "bench graph N=131072 (Npad 131328) D=768 K=8, W=R=384, 3 windows, bf16x3",
         "k1_same_graph_ms": win_timing["k1_ms"],
-        **({"pap_max_abs_err": win_errs["K4_pap"]} if key == "K4" else {}),
-    } for key, kname, _, replaces in WINDOW_KERNELS] + [k5_row]}), flush=True)
+        **({"pap_max_abs_err": win_errs["K4_pap"],
+            "gather_plain_max_abs_err": win_errs["K4_gather"],
+            "gather_plain_pap_max_abs_err": win_errs["K4_gather_pap"]} if key == "K4" else {}),
+    } for key, kname, _, replaces, source in WINDOW_KERNELS] + [k5_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-// Windowed block-sparse Laplacian matvec for Hopper (sm_90a): kernels K2, K3, K4.
+// Windowed block-sparse Laplacian matvec for Hopper (sm_90a): kernels K2 and K3.
 //
 // For each row block i of R rows and each column c of X [Npad, D] f32:
 //
 //   K2  out = X_blk - sum_w OH[blk, w*W:(w+1)*W] @ X[cs[w,i]*W : +W]
 //   K3  out = K2 - OH3[blk, :] @ contrib[strag_off[i] : +s_max]       (only if strag_cnt[i] > 0)
-//   K4  out = g_blk * X_blk - windows - stragglers,
-//       pap[i, c] = sum over the block's rows of X * out               (per-block partial)
+//
+// K4, the fused operator, is csrc/window_spmv3f.cu: it gathers from the plan's in-window slots
+// and reads no one-hot.
 //
 // OH [Npad, n_win*W] is f32, or bf16 under the oh16/dma16 tiers; OH3 [Npad, s_max] is an exact
 // 0/1 bf16 one-hot; contrib [S, D] is f32, or bf16 under dma16; cs [n_win, B], strag_off [B] and
@@ -20,16 +21,16 @@
 //   bf16         a_hi.b_hi                              (alo = 0, blo = 0)
 // The straggler product takes two passes (c_hi, c_lo), or one when contrib is stored in bf16.
 //
-// Replaces: oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel (K2, _window_spmv),
-// :_matmul_kernel3 (K3, _window_spmv3) and :_matmul_kernel3f (K4, _window_spmv3f).  Those walk
-// the row blocks in order on one TensorCore, DMA each block's windows and one-hot rows into VMEM
-// and run one MXU matmul per window and bf16 pass.
+// Replaces: oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel (K2, _window_spmv) and
+// :_matmul_kernel3 (K3, _window_spmv3).  Those walk the row blocks in order on one TensorCore,
+// DMA each block's windows and one-hot rows into VMEM and run one MXU matmul per window and bf16
+// pass.
 //
-// What bounds it on this card: operations.  At the corpus shape (Npad 131328, n_win*W = 1152,
-// s_max 384, D 768) one bf16x3 apply is 3 * 2 * 131328 * 1152 * 768 = 697 GFLOP of bf16 tensor
-// work (0.70 ms at 989 TFLOP/s), against about 1.5 GB of unique bytes (0.45 ms at 3.35 TB/s):
-// the one-hot, X, out and OH3.  The useful work is k = 8 multiply-adds a row; the one-hot is
-// more than 99 % zeros, so nearly all of those operations multiply by zero.
+// What bounds it on this card: bytes.  At the corpus shape (Npad 131328, n_win*W = 1152,
+// s_max 384, D 768) one bf16x3 apply of K3 reads about 1.5 GB of unique bytes (0.45 ms at
+// 3.35 TB/s): the one-hot, X, out and OH3; its 697 GFLOP of dense bf16 products take 0.70 ms at
+// 989 TFLOP/s.  The useful work is k = 8 multiply-adds a row; the one-hot is more than 99 %
+// zeros, so nearly all of those operations multiply by zero.
 //
 // What the design does about it: the dense products go to the tensor cores (WMMA m16n16k16,
 // bf16 in, f32 accumulate: mma.sync on sm_90a).  One CUDA block owns one (row block, 64-column
@@ -39,12 +40,11 @@
 // registers through the windows and the straggler correction.  Each step stages 32 one-hot
 // columns [R, 32] and the matching 32 window rows [32, 64] in shared memory, split into bf16
 // hi/lo on the way in, and the warps multiply them.  Blocks with no stragglers skip the
-// straggler loop.  K4 writes its per-block column partials to a [B, D] buffer without atomics;
-// the wrapper sums them over blocks, so the CG denominator is the same from run to run.
+// straggler loop.
 // What it leaves for later: no copy/compute overlap (no cp.async, TMA or wgmma pipeline), one
 // staging pass per 32 columns of the one-hot for every column tile, and the dense one-hot
 // itself: a kernel that reads idxl/wnl (k entries a row) in place of the one-hot would skip the
-// multiplies by zero.
+// multiplies by zero, as K4 (csrc/window_spmv3f.cu) does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +63,7 @@ constexpr int kKC = 32;        // one-hot columns (the k of the product) per sta
 constexpr int kLDA = kKC + 8;  // bf16 row stride of the staged A tiles (skews the banks)
 constexpr int kLDB = kDT + 8;  // bf16 row stride of the staged B tiles
 
-enum Kind { kWindows = 2, kStraggler = 3, kFused = 4 };
+enum Kind { kWindows = 2, kStraggler = 3 };
 
 struct Args {
   const int* cs;
@@ -76,9 +76,7 @@ struct Args {
   const int* strag_cnt;
   int s_max;
   const float* X;
-  const float* g;
   float* out;
-  float* pap;
   int d;
   int W;
   int R;
@@ -163,7 +161,7 @@ __device__ __forceinline__ void mma_step(FragC (&acc)[2][4], const bf16* a_hi, c
 
 __host__ __device__ constexpr size_t smem_bytes(int R) {
   return (2 * static_cast<size_t>(R) * kLDA + 2 * kKC * kLDB) * sizeof(bf16) +
-         static_cast<size_t>(R / kWarp) * (256 + kDT) * sizeof(float);
+         static_cast<size_t>(R / kWarp) * 256 * sizeof(float);
 }
 
 // blockIdx.x = column tile, blockIdx.y = row block; blockDim.x = R (one warp per 32 rows).
@@ -176,7 +174,6 @@ __global__ void __launch_bounds__(kMaxRows) window_kernel(Args a) {
   bf16* b_hi = a_lo + R * kLDA;
   bf16* b_lo = b_hi + kKC * kLDB;
   float* scratch = reinterpret_cast<float*>(b_lo + kKC * kLDB);  // [R/32][16*16]
-  float* colsum = scratch + (R / kWarp) * 256;                     // [R/32][kDT]
 
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int i = blockIdx.y, d0 = blockIdx.x * kDT;
@@ -217,7 +214,6 @@ __global__ void __launch_bounds__(kMaxRows) window_kernel(Args a) {
 
   // Epilogue: each warp moves one 16x16 fragment at a time through its own scratch tile.
   float* sc = scratch + warp * 256;
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
   const int c16 = lane & 15, r_lane = lane >> 4;
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
@@ -232,27 +228,10 @@ __global__ void __launch_bounds__(kMaxRows) window_kernel(Args a) {
           const int r = r_lane + 2 * j;
           const long long row = row0 + warp * 32 + m * 16 + r;
           const long long at = row * a.d + col;
-          const float x = a.X[at];
-          const float o = (KIND == kFused ? a.g[row] * x : x) - sc[r * 16 + c16];
-          a.out[at] = o;
-          if (KIND == kFused) part[n] += x * o;
+          a.out[at] = a.X[at] - sc[r * 16 + c16];
         }
       }
       __syncwarp();
-    }
-  }
-  if (KIND == kFused) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const float v = part[n] + __shfl_down_sync(0xffffffffu, part[n], 16);
-      if (lane < 16) colsum[warp * kDT + n * 16 + lane] = v;
-    }
-    __syncthreads();
-    const int t = threadIdx.x;
-    if (t < kDT && d0 + t < a.d) {
-      float s = 0.f;
-      for (int w = 0; w < R / kWarp; ++w) s += colsum[w * kDT + t];  // fixed order
-      a.pap[static_cast<long long>(i) * a.d + d0 + t] = s;
     }
   }
 }
@@ -334,23 +313,6 @@ int oscillink_window_spmv3(const void* cs, int n_win, const void* oh, int oh_bf1
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(c_bf16 ? launch_oh<kStraggler, bf16>(a, oh_bf16, s)
                                  : launch_oh<kStraggler, float>(a, oh_bf16, s));
-}
-
-int oscillink_window_spmv3f(const void* cs, int n_win, const void* oh, int oh_bf16, const void* X,
-                            void* out, long long n_pad, int d, int W, int R, int alo, int blo,
-                            const void* oh3, const void* contrib, int c_bf16,
-                            const void* strag_off, const void* strag_cnt, int s_max,
-                            const void* g, void* pap, void* stream) {
-  if (n_pad <= 0) return 0;
-  if (!geometry_ok(n_pad, d, W, R, n_win) || s_max < kKC || s_max % kKC)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(cs, n_win, oh, X, out, n_pad, d, W, R, alo, blo);
-  set_strag(a, oh3, contrib, strag_off, strag_cnt, s_max);
-  a.g = static_cast<const float*>(g);
-  a.pap = static_cast<float*>(pap);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(c_bf16 ? launch_oh<kFused, bf16>(a, oh_bf16, s)
-                                 : launch_oh<kFused, float>(a, oh_bf16, s));
 }
 
 const char* oscillink_window_error_string(int code) {

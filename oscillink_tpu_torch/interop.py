@@ -84,9 +84,13 @@ def window_plan_from_numpy(cs, idxl, wnl, strag_dst, strag_src, strag_w, strag_o
     """A `WindowPlan` from the JAX package's plan arrays (in field order).
 
     Checked once here, never per apply, because kernels K2–K4 rely on it:
-    in-window local ids lie in [0, W); every straggler segment offset is
-    8-aligned; and the straggler arrays are long enough for the last
-    block's read, ``strag_off[-1] + s_max <= len(strag_w)``.  ``s_max`` is
+    in-window local ids lie in [0, W); a row has at most K live slots over
+    all its windows (K4 lists them in K places); straggler sources lie in
+    [0, Npad) and destinations are non-decreasing (K4 takes each row's run
+    as one contiguous range); every straggler segment offset is 8-aligned;
+    and the straggler
+    arrays are long enough for the last block's read,
+    ``strag_off[-1] + s_max <= len(strag_w)``.  ``s_max`` is
     the straggler window of the one-hots used with the plan; by default the
     plan's own (its largest padded segment, rounded up to 128)."""
     dev = resolve_device(device)
@@ -104,6 +108,14 @@ def window_plan_from_numpy(cs, idxl, wnl, strag_dst, strag_src, strag_w, strag_o
         raise ValueError(f"plan geometry does not match W={W}: Npad {n_pad}, {b} blocks")
     if idxl.size and (idxl.min() < 0 or idxl.max() >= W):
         raise ValueError(f"in-window local ids must lie in [0, W={W})")
+    k = idxl.shape[2]
+    if idxl.size and int((np.asarray(wnl) != 0.0).sum(axis=(0, 2)).max()) > k:
+        raise ValueError(f"a row has more than K={k} live slots over its windows")
+    dst, src = np.asarray(strag_dst), np.asarray(strag_src)
+    if s_len and (src.min() < 0 or src.max() >= n_pad):
+        raise ValueError(f"straggler sources must lie in [0, Npad={n_pad})")
+    if (np.diff(dst.astype(np.int64)) < 0).any():
+        raise ValueError("straggler destinations must be non-decreasing")
     if (off % 8).any():
         raise ValueError("straggler segment offsets must be 8-aligned")
     if s_max is None:

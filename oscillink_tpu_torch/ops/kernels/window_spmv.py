@@ -3,29 +3,36 @@
 Port of ``oscillink_tpu/ops/pallas/window_spmv.py``.  Rows are processed in
 blocks of R; for each block the plan elects ``n_windows`` W-aligned row
 windows of X (after locality ordering, mutual-kNN neighbours concentrate
-near the diagonal), and the within-window selection is a dense
-``[R, n_windows*W]`` one-hot *weight* matrix, built once per graph.  Edges
-outside every window ("stragglers") are grouped by destination row block
-and applied with an exact 0/1 bf16 one-hot against a per-apply contribution
-buffer ``contrib = strag_w ⊙ X[strag_src]``.
+near the diagonal) and keeps each row's in-window neighbours as
+``idxl``/``wnl`` slots.  Edges outside every window ("stragglers") are
+listed by destination row, grouped by row block.  K2 and K3, like the TPU
+kernels, apply the windows as a dense ``[R, n_windows*W]`` one-hot *weight*
+matrix built once per graph, and the stragglers as an exact 0/1 bf16
+one-hot against a per-apply contribution buffer
+``contrib = strag_w ⊙ X[strag_src]``.
 
-The three kernels (CUDA source ``oscillink_tpu_torch/csrc/window_spmv.cu``;
-its header says what bounds each one on the card and what the design does
-about it):
+The kernels:
 
 * K2 ``window_spmv_cuda`` — windows only: ``X_blk − Σ_w OH_w @ X_win(w)``.
   `lap_matvec_windowed` adds the straggler epilogue in plain PyTorch.
 * K3 ``window_spmv3_cuda`` — K2 minus the in-kernel straggler correction.
+  Both in ``oscillink_tpu_torch/csrc/window_spmv.cu`` (WMMA products of the
+  one-hot).
 * K4 ``window_spmv3f_cuda`` — ``g ⊙ x − windows − stragglers`` plus the
   per-block column partials ``Σ_rows x ⊙ out`` (the CG denominator
-  ⟨p, Kp⟩, summed over blocks by the wrapper, without atomics).
+  ⟨p, Kp⟩, summed over blocks by the wrapper, without atomics).  Its CUDA
+  source, ``csrc/window_spmv3f.cu``, reads no one-hot: it stages the
+  windows in shared memory and gathers each row's live slots from them,
+  and each row's stragglers from X.
 
 Beside each kernel is its plain PyTorch version (``window_spmv_ref``,
 ``window_spmv3_ref``, ``window_spmv3f_ref``): the precision tier's own
 arithmetic — bf16 round-to-nearest hi/lo splits of the one-hot and of the X
-window, products summed in float32 — in a per-block batched form.  A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or raises.
-Each wrapper counts its launches in its ``launches`` attribute.
+window, products summed in float32 — in a per-block batched form.  K4 has a
+second, ``window_spmv3f_gather_ref``: the kernel's gather-form arithmetic,
+which the one-hot form matches to 2^-16 a product.  A CPU tensor takes the
+one-hot plain versions; a CUDA tensor launches the kernel or raises.  Each
+wrapper counts its launches in its ``launches`` attribute.
 
 The precision tier (``OSCILLINK_WINDOW_PRECISION``) is read per call:
 bf16x3 (default; ``a_hi·b_hi + a_hi·b_lo + a_lo·b_hi``), bf16x2
@@ -71,6 +78,7 @@ __all__ = [
     "window_spmv_ref",
     "window_spmv3_ref",
     "window_spmv3f_ref",
+    "window_spmv3f_gather_ref",
     "window_spmv_cuda",
     "window_spmv3_cuda",
     "window_spmv3f_cuda",
@@ -96,9 +104,11 @@ class WindowPlan(NamedTuple):
     i's stragglers occupy ``[strag_off[i], strag_off[i] + p_i)`` where p_i is
     the block's count rounded up to 8 (padding entries carry w = 0 and point
     their dst at the block's last row, keeping the global dst order
-    non-decreasing).  K3/K4 read a fixed ``[s_max]``-row slice starting at
+    non-decreasing).  K3 reads a fixed ``[s_max]``-row slice starting at
     ``strag_off[i]``; rows past the block's own segment are masked out by
-    the straggler one-hot."""
+    the straggler one-hot.  K4 reads ``[strag_off[i], + min(strag_cnt[i],
+    s_max))`` and takes each row's run in it as one contiguous range, so it
+    relies on the dst order."""
 
     cs: torch.Tensor  # [n_win, B] int32 — elected window ids (units of W rows)
     idxl: torch.Tensor  # [n_win, Npad, K] int32 — in-window local col ids
@@ -563,6 +573,75 @@ def window_spmv3f_ref(plan: WindowPlan, oh: torch.Tensor, oh3: torch.Tensor, Xpa
     return acc.reshape(n_pad, d), torch.sum(pap, dim=0)
 
 
+def _merged_weights(idxl: torch.Tensor, wnl: torch.Tensor) -> torch.Tensor:
+    """One window's [Npad, K] slot weights as the one-hot holds them: a
+    column named by several live slots of a row gets their sum, in slot
+    order, on its first live slot and 0 on the others."""
+    k = idxl.shape[1]
+    live = wnl != 0.0
+    out = wnl.clone()
+    for a in range(k):
+        same = (idxl == idxl[:, a:a + 1]) & live
+        s = wnl[:, a]
+        for b in range(a + 1, k):
+            s = torch.where(same[:, b], s + wnl[:, b], s)
+        first = ~(same[:, :a].any(dim=1))
+        out[:, a] = torch.where(live[:, a] & first, s, 0.0)
+    return out
+
+
+def window_spmv3f_gather_ref(plan: WindowPlan, Xpad: torch.Tensor, g: torch.Tensor, W: int,
+                             R: int, s_max: int, precision: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain K4 in gather form, the arithmetic of ``csrc/window_spmv3f.cu``:
+
+        out[r] = g[r]·x[r] − Σ_w Σ_a A(wn_a)·B(x[cs[w, blk]·W + idxl_a])
+                 − Σ_{e in r's straggler run} C(strag_w[e]·x[strag_src[e]])
+
+    per live slot (duplicate columns merged as the one-hot merges them,
+    `_merged_weights`) and per live straggler entry of the block's segment
+    ``[strag_off, strag_off + min(strag_cnt, s_max))``, in slot and entry
+    order.  A, B, C are the tier's roundings: A = bf16 under oh16, dma16 and
+    bf16; B = bf16 under bf16x2 and bf16; C = bf16 under dma16; identity
+    otherwise.  The straggler term is a per-row segment sum over each row's
+    run of the destination-sorted list, not ``index_add_`` (atomics on CUDA).
+    Returns (out, Σ_blocks Σ_rows x ⊙ out) like `window_spmv3f_ref`."""
+    if precision not in PRECISION_TIERS:
+        raise ValueError(f"unknown window precision tier {precision!r}")
+    n_pad, d = Xpad.shape
+    dev = Xpad.device
+    rows = torch.arange(n_pad, device=dev)
+    blk = rows // R
+    a_bf16 = precision in ("oh16", "dma16", "bf16")
+    xs = _bf16(Xpad) if precision in ("bf16x2", "bf16") else Xpad
+    acc = g * Xpad
+    for w in range(plan.n_windows):
+        base = plan.cs[w].long()[blk] * W
+        wt = _merged_weights(plan.idxl[w], plan.wnl[w])
+        if a_bf16:
+            wt = _bf16(wt)
+        for a in range(wt.shape[1]):
+            nb = xs.index_select(0, base + plan.idxl[w, :, a].long())
+            acc = acc - torch.where(wt[:, a:a + 1] != 0.0, wt[:, a:a + 1] * nb, 0.0)
+    off = plan.strag_off.long()[blk]
+    end = off + torch.clamp(plan.strag_cnt.long(), max=s_max)[blk]
+    dst = plan.strag_dst
+    r32 = rows.to(dst.dtype)
+    lo = torch.minimum(torch.maximum(torch.searchsorted(dst, r32), off), end)
+    hi = torch.minimum(torch.maximum(torch.searchsorted(dst, r32, right=True), off), end)
+    n_run = int((hi - lo).max()) if n_pad else 0
+    last = max(dst.shape[0] - 1, 0)
+    for j in range(n_run):
+        e = torch.clamp(lo + j, max=last)
+        w_e = plan.strag_w[e]
+        live = (lo + j < hi) & (w_e != 0.0)
+        c = w_e[:, None] * Xpad.index_select(0, plan.strag_src.long()[e])
+        if precision == "dma16":
+            c = _bf16(c)
+        acc = acc - torch.where(live[:, None], c, 0.0)
+    pap = torch.sum((Xpad * acc).view(n_pad // R, R, d), dim=1)
+    return acc, torch.sum(pap, dim=0)
+
+
 # -- CUDA wrappers ---------------------------------------------------------
 
 # (a_lo·b_hi, a_hi·b_lo) terms of each tier beside a_hi·b_hi
@@ -587,21 +666,33 @@ def _library() -> ctypes.CDLL:
     strag = [_P, _P, _I, _P, _P, _I]
     lib.oscillink_window_spmv.argtypes = common + [_P]
     lib.oscillink_window_spmv3.argtypes = common + strag + [_P]
-    lib.oscillink_window_spmv3f.argtypes = common + strag + [_P, _P, _P]  # g, pap, stream
-    for fn in (lib.oscillink_window_spmv, lib.oscillink_window_spmv3, lib.oscillink_window_spmv3f):
+    for fn in (lib.oscillink_window_spmv, lib.oscillink_window_spmv3):
         fn.restype = ctypes.c_int
     lib.oscillink_window_error_string.argtypes = [_I]
     lib.oscillink_window_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name: str, plan: WindowPlan, oh: torch.Tensor, Xpad: torch.Tensor, W: int, R: int,
-           precision: str, **extra: Optional[torch.Tensor]) -> None:
+@functools.cache
+def _library3f() -> ctypes.CDLL:
+    lib = load_library("window_spmv3f")
+    # X, g, cs, n_win, idxl, wnl, K, strag_dst, strag_src, strag_w, strag_off, strag_cnt, s_max,
+    # out, pap, n_pad, d, W, R, tier, stream
+    lib.oscillink_window_spmv3f.argtypes = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                            _P, _P, _LL, _I, _I, _I, _I, _P]
+    lib.oscillink_window_spmv3f.restype = ctypes.c_int
+    lib.oscillink_window_spmv3f_error_string.argtypes = [_I]
+    lib.oscillink_window_spmv3f_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_common(name: str, plan: WindowPlan, Xpad: torch.Tensor, precision: str,
+                  tensors: dict) -> None:
+    """Device, contiguity and dtype checks shared by the K2–K4 wrappers."""
     def fail(msg):
         raise ValueError(f"{name}: {msg}")
 
-    tensors = {"Xpad": Xpad, "oh": oh, "cs": plan.cs, **extra}
-    for key, t in tensors.items():
+    for key, t in {"Xpad": Xpad, "cs": plan.cs, **tensors}.items():
         if t.device.type != "cuda":
             fail(f"{key} must be a CUDA tensor, got {t.device}")
         if t.device != Xpad.device:
@@ -612,10 +703,18 @@ def _check(name: str, plan: WindowPlan, oh: torch.Tensor, Xpad: torch.Tensor, W:
         fail(f"unknown precision tier {precision!r}")
     if Xpad.dtype != torch.float32 or Xpad.dim() != 2:
         fail(f"Xpad must be a 2-D float32 tensor, got {Xpad.dtype} {tuple(Xpad.shape)}")
-    n_pad = Xpad.shape[0]
-    n_win, b = plan.cs.shape
     if plan.cs.dtype != torch.int32:
         fail("plan.cs must be int32")
+
+
+def _check(name: str, plan: WindowPlan, oh: torch.Tensor, Xpad: torch.Tensor, W: int, R: int,
+           precision: str, **extra: Optional[torch.Tensor]) -> None:
+    def fail(msg):
+        raise ValueError(f"{name}: {msg}")
+
+    _check_common(name, plan, Xpad, precision, {"oh": oh, **extra})
+    n_pad = Xpad.shape[0]
+    n_win, b = plan.cs.shape
     if R % 32 or not 32 <= R <= _MAX_R or W % _KC or W <= 0:
         fail(f"geometry W={W}, R={R} unsupported (R a multiple of 32 up to {_MAX_R}, "
              f"W a multiple of {_KC})")
@@ -632,8 +731,40 @@ def _check(name: str, plan: WindowPlan, oh: torch.Tensor, Xpad: torch.Tensor, W:
             t = extra[key]
             if t.dtype != torch.int32 or tuple(t.shape) != (b,):
                 fail(f"{key} must be [{b}] int32")
-    g = extra.get("g")
-    if g is not None and (g.dtype != torch.float32 or tuple(g.shape) != (n_pad, 1)):
+
+
+def _check3f(plan: WindowPlan, Xpad: torch.Tensor, g: torch.Tensor, W: int, R: int, s_max: int,
+             precision: str) -> None:
+    name = "window_spmv3f_cuda"
+
+    def fail(msg):
+        raise ValueError(f"{name}: {msg}")
+
+    _check_common(name, plan, Xpad, precision, {
+        "idxl": plan.idxl, "wnl": plan.wnl, "strag_dst": plan.strag_dst,
+        "strag_src": plan.strag_src, "strag_w": plan.strag_w, "strag_off": plan.strag_off,
+        "strag_cnt": plan.strag_cnt, "g": g,
+    })
+    n_pad = Xpad.shape[0]
+    n_win, b = plan.cs.shape
+    k = plan.idxl.shape[2]
+    if W <= 0 or R <= 0 or n_pad != b * R or n_pad % W:
+        fail(f"Xpad rows {n_pad} do not match the plan ({b} blocks of {R}, windows of {W})")
+    for key, dtype in (("idxl", torch.int32), ("wnl", torch.float32)):
+        t = getattr(plan, key)
+        if t.dtype != dtype or tuple(t.shape) != (n_win, n_pad, k):
+            fail(f"{key} must be [{n_win}, {n_pad}, K] {dtype}")
+    if s_max < 0:
+        fail(f"s_max must be >= 0, got {s_max}")
+    s_len = plan.strag_w.shape[0]
+    for key, dtype, shape in (("strag_dst", torch.int32, (s_len,)),
+                              ("strag_src", torch.int32, (s_len,)),
+                              ("strag_w", torch.float32, (s_len,)),
+                              ("strag_off", torch.int32, (b,)), ("strag_cnt", torch.int32, (b,))):
+        t = getattr(plan, key)
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            fail(f"{key} must be {list(shape)} {dtype}")
+    if g.dtype != torch.float32 or tuple(g.shape) != (n_pad, 1):
         fail(f"g must be [{n_pad}, 1] float32")
 
 
@@ -699,30 +830,35 @@ def window_spmv3_cuda(plan: WindowPlan, oh: torch.Tensor, oh3: torch.Tensor, Xpa
     return out
 
 
-def window_spmv3f_cuda(plan: WindowPlan, oh: torch.Tensor, oh3: torch.Tensor, Xpad: torch.Tensor,
-                       g: torch.Tensor, W: int, R: int, s_max: int,
-                       precision: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4 (fused operator + per-block ⟨x, out⟩ column partials) and
-    sum the partials over blocks with ``torch.sum`` — no atomics, so the CG
-    denominator is the same from run to run."""
-    contrib = _contrib(plan, Xpad, precision)
-    _check("window_spmv3f_cuda", plan, oh, Xpad, W, R, precision, oh3=oh3, contrib=contrib,
-           strag_off=plan.strag_off, strag_cnt=plan.strag_cnt, g=g)
-    if oh3.shape[1] != s_max:
-        raise ValueError(f"window_spmv3f_cuda: oh3 has {oh3.shape[1]} columns, s_max is {s_max}")
+def window_spmv3f_cuda(plan: WindowPlan, Xpad: torch.Tensor, g: torch.Tensor, W: int, R: int,
+                       s_max: int, precision: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4 (``csrc/window_spmv3f.cu``: the fused operator in gather
+    form from the plan's in-window slots and straggler list, no one-hot)
+    and sum its per-block ⟨x, out⟩ column partials over blocks with
+    ``torch.sum``: no atomics, so the CG denominator is the same from run to
+    run.  Raises on bad inputs and on a refused launch (a geometry whose
+    staged windows do not fit a block's shared memory); never falls back to
+    the plain version."""
+    _check3f(plan, Xpad, g, W, R, s_max, precision)
     out = torch.empty_like(Xpad)
     partials = torch.empty((plan.n_blocks, Xpad.shape[1]), dtype=torch.float32,
                            device=Xpad.device)
     if Xpad.numel() == 0:
         return out, partials.sum(dim=0)
-    lib = _library()
+    lib = _library3f()
     with torch.cuda.device(Xpad.device):
         stream = torch.cuda.current_stream(Xpad.device).cuda_stream
         rc = lib.oscillink_window_spmv3f(
-            *_common_args(plan, oh, Xpad, out, W, R, precision),
-            *_strag_args(plan, oh3, contrib), g.data_ptr(), partials.data_ptr(), stream,
+            Xpad.data_ptr(), g.data_ptr(), plan.cs.data_ptr(), plan.n_windows,
+            plan.idxl.data_ptr(), plan.wnl.data_ptr(), plan.idxl.shape[2],
+            plan.strag_dst.data_ptr(), plan.strag_src.data_ptr(), plan.strag_w.data_ptr(),
+            plan.strag_off.data_ptr(), plan.strag_cnt.data_ptr(), s_max,
+            out.data_ptr(), partials.data_ptr(), Xpad.shape[0], Xpad.shape[1], W, R,
+            PRECISION_TIERS.index(precision), stream,
         )
-    _raise_on(rc, "window_spmv3f")
+    if rc != 0:
+        msg = lib.oscillink_window_spmv3f_error_string(rc).decode()
+        raise RuntimeError(f"window_spmv3f launch failed: CUDA error {rc} ({msg})")
     window_spmv3f_cuda.launches += 1
     return out, torch.sum(partials, dim=0)
 
@@ -797,11 +933,15 @@ def k_matvec_windowed(plan: WindowPlan, oh: OneHots, Xpad: torch.Tensor, g: torc
     The caller folds the operator's full diagonal, divided by the
     off-diagonal scale s, into ``g`` ([n_pad, 1] f32): M X = s·K(X).  Padded
     rows add 0 to both outputs while Xpad's padding is zero.  D % 128 == 0
-    takes K4; any other D composes the same quantities from
+    takes K4: on the card the gather-form kernel, which reads the plan and
+    no one-hot; on the CPU the one-hot plain version (the two agree to 2^-16
+    a product).  Any other D composes the same quantities from
     `lap_matvec_windowed`: K(X) = (g − 1) ⊙ X + L_win X."""
     W, R, precision = _geometry(plan, oh, W, R, precision)
+    s_max = oh.strag.shape[1]
     if Xpad.shape[1] % 128 == 0:
-        fn = _on(Xpad, window_spmv3f_cuda, window_spmv3f_ref)
-        return fn(plan, oh.main, oh.strag, Xpad, g, W, R, oh.strag.shape[1], precision)
+        if _on(Xpad, True, False):
+            return window_spmv3f_cuda(plan, Xpad, g, W, R, s_max, precision)
+        return window_spmv3f_ref(plan, oh.main, oh.strag, Xpad, g, W, R, s_max, precision)
     out = (g - 1.0) * Xpad + lap_matvec_windowed(plan, oh, Xpad, W=W, R=R, precision=precision)
     return out, torch.sum(Xpad * out, dim=0)

@@ -10,9 +10,11 @@ Needs one CUDA card.  For each cell it runs one warm pass on a lattice,
 then profiles two windows on a second one: its build (construction and
 set_query) and its solve (settle, U* solve, light receipt).  It prints one
 JSON line per cell; for each window the wall time, the device time summed
-over kernels and copies, the device's idle share, and the top kernels and
-the top aten ops by device time.  It fails when CUDA is missing or the
-trace holds no device time.
+over kernels and copies, the device's idle share, the top kernels and the
+top aten ops by device time, and the device time and share of the cell's
+operator kernel (K1's ``spmv_gather_kernel`` on the gather path, K4's
+``window_spmv3f_kernel`` on the windowed one) with its launch count.  It
+fails when CUDA is missing or the trace holds no device time.
 """
 
 from __future__ import annotations
@@ -31,11 +33,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import CORPUS, HEADLINE, data, env, locality_corpus  # noqa: E402
 from oscillink_tpu_torch import Oscillink  # noqa: E402
 
-# cell: (shape, corpus generator, environment)
+# cell: (shape, corpus generator, environment, the operator kernel's name)
 CELLS = {
-    "headline": (HEADLINE, data, {}),
-    "corpus": (CORPUS, data, {}),
-    "windowed_corpus": (CORPUS, locality_corpus, {"OSCILLINK_WINDOWED_MATVEC": "1"}),
+    "headline": (HEADLINE, data, {}, "spmv_gather_kernel"),
+    "corpus": (CORPUS, data, {}, "spmv_gather_kernel"),
+    "windowed_corpus": (CORPUS, locality_corpus, {"OSCILLINK_WINDOWED_MATVEC": "1"},
+                        "window_spmv3f_kernel"),
 }
 
 
@@ -62,8 +65,9 @@ def _rows(events) -> list:
     return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
 
 
-def _window(fn) -> tuple[dict, object]:
-    """Profile ``fn()`` and summarise the window's device time."""
+def _window(fn, kernel: str) -> tuple[dict, object]:
+    """Profile ``fn()`` and summarise the window's device time, with the
+    time of the kernels whose name holds ``kernel``."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -78,9 +82,13 @@ def _window(fn) -> tuple[dict, object]:
     device_ms = sum(ms for _, ms, _ in kernels)
     if device_ms <= 0:
         raise RuntimeError("the trace holds no device time; time with CUDA events instead")
+    own = [(ms, count) for key, ms, count in kernels if kernel in key]
+    own_ms = sum(ms for ms, _ in own)
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "operator_kernel": {"kernel": kernel, "ms": own_ms, "share": own_ms / device_ms,
+                            "calls": sum(count for _, count in own)},
         "top_kernels": [
             {"kernel": key[:100], "ms": ms, "share": ms / device_ms, "calls": count}
             for key, ms, count in kernels[:8]
@@ -92,13 +100,13 @@ def _window(fn) -> tuple[dict, object]:
     }, out
 
 
-def profile_cell(name: str, shape: dict, corpus, envs: dict) -> dict:
+def profile_cell(name: str, shape: dict, corpus, envs: dict, kernel: str) -> dict:
     n, d, k = shape["n"], shape["d"], shape["k"]
     Y, psi = corpus(n, d)
     with env(**envs):
         _solve_pass(_lattice(Y, psi, k))  # warm-up on a lattice of its own
-        build, lat = _window(lambda: _lattice(Y, psi, k))  # its U* is not cached
-        solve, iters = _window(lambda: _solve_pass(lat))
+        build, lat = _window(lambda: _lattice(Y, psi, k), kernel)  # its U* is not cached
+        solve, iters = _window(lambda: _solve_pass(lat), kernel)
     return {"cell": name, "n": n, "d": d, "k": k, **iters, "build": build, "solve": solve}
 
 
@@ -107,8 +115,8 @@ def main() -> int:
         print("profile_torch_main_path: no CUDA card", file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0), flush=True)
-    for name, (shape, corpus, envs) in CELLS.items():
-        print(json.dumps(profile_cell(name, shape, corpus, envs)), flush=True)
+    for name, (shape, corpus, envs, kernel) in CELLS.items():
+        print(json.dumps(profile_cell(name, shape, corpus, envs, kernel)), flush=True)
     return 0
 
 

@@ -250,6 +250,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, 'oscillink_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import profile_torch_main_path\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m.startswith('jaxlib')"
         " or m == 'oscillink_tpu' or m.startswith('oscillink_tpu.')]\n"
         "ours = sorted(m for m in sys.modules if m.startswith('oscillink_tpu_torch'))\n"

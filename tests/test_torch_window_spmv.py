@@ -7,9 +7,11 @@ itself off the TPU, `_window_spmv3` (K3) and `_window_spmv3f` (K4) run with
 bf16-rounded operands and sum the exact products in f32, so only the order
 of summation differs: outputs are held to 1e-5 relative to max|ref|, K4's
 column partials (summed over rows and blocks) to 1e-4, as
-`tests/test_fused_windowed.py` holds the JAX package's own.  Plans and
-one-hots must be identical.  The CUDA kernels have no CPU mode:
-`chip_smoke.py` holds them against these plain versions on a card.
+`tests/test_fused_windowed.py` holds the JAX package's own.  K4's
+gather-form plain version (the arithmetic of ``csrc/window_spmv3f.cu``)
+differs from the one-hot form by about 2^-16 a product and is held to the
+same bars.  Plans and one-hots must be identical.  The CUDA kernels have no
+CPU mode: `chip_smoke.py` holds them against these plain versions on a card.
 """
 
 from unittest import mock
@@ -173,8 +175,8 @@ def test_precision_tier_parser_matches_jax(monkeypatch, value):
         assert tw.lowcov_smax_bound() == ws.lowcov_smax_bound()
 
 
-def _kernel_case(n, d, seed, W=384, R=384, n_win=3):
-    idx, wn = _far_jump(n, 6, seed=seed)
+def _kernel_case(n, d, seed, W=384, R=384, n_win=3, k=6):
+    idx, wn = _far_jump(n, k, seed=seed)
     pj, _ = ws.build_window_plan(idx, wn, W=W, R=R, n_windows=n_win)
     pt, _ = tw.build_window_plan(idx, wn, W=W, R=R, n_windows=n_win, device="cpu")
     s_max = ws.plan_s_max(pj)
@@ -227,6 +229,97 @@ def test_k4_plain_matches_pallas_interpret(tier):
     )
     assert _rel(out.numpy(), ref) < 1e-5
     assert _rel(pap.numpy(), pap_ref) < 1e-4
+
+
+GEOMETRIES = {
+    "ragged_384x3": dict(n=1700, d=48, seed=5),
+    "w512_r256x2": dict(n=2000, d=32, seed=9, W=512, R=256, n_win=2),
+    # more slots a row than one warp's 32 lanes: a window's repeated columns
+    # can fall in different 32-slot chunks of the kernel's walk
+    "k40_384x3": dict(n=1200, d=48, seed=17, k=40),
+}
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_k4_gather_plain_matches_pallas_and_the_onehot_form(tier, geometry):
+    """K4's gather form against the TPU kernel (interpret mode) and the
+    one-hot plain version, in every tier; the plans repeat columns within a
+    row, which the gather form must merge as the one-hot does."""
+    geo = dict(GEOMETRIES[geometry])
+    W, R = geo.get("W", 384), geo.get("R", 384)
+    pj, pt, oj, ot_, Xj, Xt, g, s_max = _kernel_case(**geo)
+    gt = torch.from_numpy(g)
+    with _interp():
+        ref, pap_ref = ws._window_spmv3f(pj, _main(oj, tier, True), oj.strag, Xj, jnp.asarray(g),
+                                         W, R, s_max, tier)
+    one, pap_one = tw.window_spmv3f_ref(pt, _main(ot_, tier, False), ot_.strag, Xt, gt, W, R,
+                                        s_max, tier)
+    out, pap = tw.window_spmv3f_gather_ref(pt, Xt, gt, W, R, s_max, tier)
+    assert _rel(out.numpy(), ref) < 1e-5 and _rel(pap.numpy(), pap_ref) < 1e-4
+    assert _rel(out.numpy(), one.numpy()) < 1e-5 and _rel(pap.numpy(), pap_one.numpy()) < 1e-4
+
+
+def test_merged_weights_sum_repeated_columns_in_slot_order():
+    idxl = torch.tensor([[3, 5, 3, 0, 3], [1, 1, 2, 7, 0]], dtype=torch.int32)
+    wnl = torch.tensor([[0.5, 0.25, 2.0**-30, 0.0, 0.125], [0.0, 0.75, 0.5, 0.0, 0.0]])
+    merged = tw._merged_weights(idxl, wnl)
+    want = torch.tensor([[(0.5 + 2.0**-30) + 0.125, 0.25, 0.0, 0.0, 0.0],
+                         [0.0, 0.75, 0.5, 0.0, 0.0]])
+    assert torch.equal(merged, want)
+
+
+def test_k4_gather_plain_skips_padding_and_empty_blocks():
+    """Straggler padding (w = 0) contributes nothing, even from a NaN source
+    row, and a block whose count is 0 applies none of its segment."""
+    pj, pt, oj, ot_, Xj, Xt, g, s_max = _kernel_case(1900, 64, seed=13)
+    gt = torch.from_numpy(g)
+    n, args = 1900, (384, 384, s_max, "bf16x3")
+    out, _ = tw.window_spmv3f_gather_ref(pt, Xt, gt, *args)
+    pad = pt.strag_w == 0.0
+    assert bool(pad.any())
+    Xn = Xt.clone()
+    Xn[-1] = float("nan")  # a padding row no live slot reads
+    nan_src = pt._replace(strag_src=torch.where(pad, pt.n_pad - 1, pt.strag_src))
+    out_nan, _ = tw.window_spmv3f_gather_ref(nan_src, Xn, gt, *args)
+    assert torch.equal(out_nan[:n], out[:n])
+
+    cnt = pt.strag_cnt.clone()
+    i = int(torch.nonzero(cnt > 0)[0, 0])
+    off = int(pt.strag_off[i])
+    no_count = pt._replace(strag_cnt=torch.where(torch.arange(cnt.numel()) == i, 0, cnt))
+    w0 = pt.strag_w.clone()
+    w0[off:off + int(cnt[i])] = 0.0
+    out_empty, _ = tw.window_spmv3f_gather_ref(no_count, Xt, gt, *args)
+    assert torch.equal(out_empty, tw.window_spmv3f_gather_ref(pt._replace(strag_w=w0), Xt, gt,
+                                                               *args)[0])
+    assert not torch.equal(out_empty, out)
+    one, _ = tw.window_spmv3f_ref(no_count, ot_.main, ot_.strag, Xt, gt, *args)
+    assert _rel(out_empty.numpy(), one.numpy()) < 1e-5
+
+
+def test_k_matvec_windowed_with_more_slots_than_a_warp_matches_pallas():
+    """K = 40 slots a row still takes K4's path (no slot limit): on the CPU
+    its one-hot plain version, with no launch."""
+    n, k = 1200, 40
+    idx, wn = _far_jump(n, k, seed=17)
+    pj, _ = ws.build_window_plan(idx, wn, W=384, R=384, n_windows=3)
+    pt, _ = tw.build_window_plan(idx, wn, W=384, R=384, n_windows=3, device="cpu")
+    s_max = ws.plan_s_max(pj)
+    oj, ot_ = ws.build_onehot(pj, 384, s_max), tw.build_onehot(pt, 384, s_max)
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((n, 128)).astype(np.float32)
+    g = (1.5 + rng.random((pj.n_pad, 1))).astype(np.float32)
+    kj, pap_j = ws.k_matvec_windowed(pj, oj, ws.pad_rows(jnp.asarray(X), pj.n_pad),
+                                     jnp.asarray(g), precision="bf16x3")
+    Xt, gt = tw.pad_rows(torch.from_numpy(X), pt.n_pad), torch.from_numpy(g)
+    before = tw.window_spmv3f_cuda.launches
+    kt, pap_t = tw.k_matvec_windowed(pt, ot_, Xt, gt, precision="bf16x3")
+    assert tw.window_spmv3f_cuda.launches == before
+    one, pap_one = tw.window_spmv3f_ref(pt, ot_.main, ot_.strag, Xt, gt, 384, 384, s_max,
+                                        "bf16x3")
+    assert torch.equal(kt, one) and torch.equal(pap_t, pap_one)
+    assert _rel(kt.numpy(), kj) < 1e-5 and _rel(pap_t.numpy(), pap_j) < 1e-4
 
 
 def test_kernels_in_the_other_geometry_match_pallas():
@@ -296,7 +389,7 @@ def test_wrappers_refuse_cpu_tensors():
     calls = (
         (tw.window_spmv_cuda, (pt, ot_.main, Xt, 384, 384, "bf16x3")),
         (tw.window_spmv3_cuda, (pt, ot_.main, ot_.strag, Xt, 384, 384, s_max, "bf16x3")),
-        (tw.window_spmv3f_cuda, (pt, ot_.main, ot_.strag, Xt, gt, 384, 384, s_max, "bf16x3")),
+        (tw.window_spmv3f_cuda, (pt, Xt, gt, 384, 384, s_max, "bf16x3")),
     )
     for fn, args in calls:
         before = fn.launches
@@ -305,16 +398,31 @@ def test_wrappers_refuse_cpu_tensors():
         assert fn.launches == before
 
 
-def test_window_source_is_content_addressed_and_names_what_it_replaces():
-    src, lib = kbuild._target("window_spmv")
-    assert src == kbuild.CSRC_DIR / "window_spmv.cu" and src.exists()
-    assert lib.parent == kbuild.BUILD_DIR and lib.name.startswith("window_spmv-")
+SOURCES = {
+    # source: (the Pallas kernels it names, its entry points, entry points it must not hold)
+    "window_spmv": (("oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel (K2",
+                     ":_matmul_kernel3 (K3"),
+                    ("oscillink_window_spmv(", "oscillink_window_spmv3(",
+                     "oscillink_window_error_string("),
+                    ("oscillink_window_spmv3f(", "kFused")),
+    "window_spmv3f": (("oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel3f (K4",),
+                      ("oscillink_window_spmv3f(", "oscillink_window_spmv3f_error_string("),
+                      ("wmma::", "oh3", "const void* contrib")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SOURCES))
+def test_window_source_is_content_addressed_and_names_what_it_replaces(name):
+    names, entries, absent = SOURCES[name]
+    src, lib = kbuild._target(name)
+    assert src == kbuild.CSRC_DIR / f"{name}.cu" and src.exists()
+    assert lib.parent == kbuild.BUILD_DIR and lib.name.startswith(f"{name}-")
     text = src.read_text()
-    assert "oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel (K2" in text
-    assert ":_matmul_kernel3 (K3" in text and ":_matmul_kernel3f (K4" in text
-    for entry in ("oscillink_window_spmv(", "oscillink_window_spmv3(", "oscillink_window_spmv3f("):
-        assert entry in text
-    assert "atomic" not in text.replace("without atomics", "")
+    for needle in names + entries:
+        assert needle in text
+    for needle in absent:
+        assert needle not in text
+    assert "atomic" not in text.replace("no atomics", "").replace("without atomics", "")
 
 
 def _jax_plan_arrays(pj):
@@ -346,8 +454,23 @@ def test_interop_rejects_plans_the_kernels_cannot_take():
     with pytest.raises(ValueError, match=r"\[0, W=384\)"):
         interop.window_plan_from_numpy(*bad, W=384, device="cpu")
     bad = [a.copy() for a in arrays]
+    bad[3][[0, -1]] = bad[3][[-1, 0]]  # strag_dst: out of order
+    with pytest.raises(ValueError, match="non-decreasing"):
+        interop.window_plan_from_numpy(*bad, W=384, device="cpu")
+    bad = [a.copy() for a in arrays]
+    bad[4][0] = pj.n_pad  # strag_src: past the padded rows
+    with pytest.raises(ValueError, match=r"\[0, Npad="):
+        interop.window_plan_from_numpy(*bad, W=384, device="cpu")
+    bad = [a.copy() for a in arrays]
     bad[6][1] += 4  # strag_off: not 8-aligned
     with pytest.raises(ValueError, match="8-aligned"):
         interop.window_plan_from_numpy(*bad, W=384, device="cpu")
     with pytest.raises(ValueError, match="too short"):
         interop.window_plan_from_numpy(*arrays, W=384, s_max=4096, device="cpu")
+    # K4 lists a row's live slots in K places: more over a row's windows is
+    # refused, not cut short (the builders keep at most K)
+    assert (arrays[2] != 0).sum(axis=(0, 2)).max() <= 6
+    bad = [a.copy() for a in arrays]
+    bad[2][:, 5, :] = 0.05  # wnl: row 5 live in every slot of all 3 windows
+    with pytest.raises(ValueError, match="more than K=6 live slots"):
+        interop.window_plan_from_numpy(*bad, W=384, device="cpu")
