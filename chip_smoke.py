@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2 and K3
-(``csrc/window_spmv.cu``), K4 (``csrc/window_spmv3f.cu``) and K5
+Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2, K3 and K4
+(``csrc/window_spmv3f.cu``, three variants of one gather kernel) and K5
 (``csrc/bucket_gather.cu``) from the checkout, one ``nvcc`` per source, all
-started together, and holds each against its plain PyTorch version (K4
-against the one-hot form and its own gather form, and bit-equal from launch
-to launch).  Then it drives the paths through the public entry points:
+started together, and holds each against its plain PyTorch version (K2-K4
+against the one-hot form and their own gather forms, and bit-equal from
+launch to launch; on a NaN and an infinity in window rows no row
+references, to the gather forms' semantics).  Then it drives the paths
+through the public entry points:
 
 * the gather path (K1): quickstart and headline against the port's CPU path,
   and the 131072 x 768 x k8 corpus;
@@ -15,7 +17,8 @@ to launch).  Then it drives the paths through the public entry points:
   131072 x 768 x k8 corpus through K4, held to the gather path on the same
   corpus; a clustered corpus with stragglers through K4 (fused) and K3
   (``OSCILLINK_WINDOWED_FUSED=0``); and a D = 97 lattice through K2 and its
-  straggler epilogue, each held to the port's CPU path;
+  straggler epilogue, each held to the port's CPU path; the card's window
+  contexts must hold no one-hot;
 * the bucket-shuffle probe (K5, ``oscillink_tpu_torch.benchmarks.
   probe_bucket_gather``) at its full size, 126976 x 768 with 1015808 edges.
 
@@ -57,33 +60,28 @@ from oscillink_tpu_torch.ops.receipts import deltaH_tree_np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL = 1e-5  # kernel vs plain: same K order, the gap is FMA contraction only
-# K2-K4 vs plain, relative to max|plain|: K2/K3 take the same bf16-rounded
-# operands and sum exact products in f32, only in another order; K4's
+# K2-K4 vs the one-hot plain versions, relative to max|plain|: the kernels'
 # gather-form products differ from the one-hot form's bf16 passes by about
 # 2^-16 each (csrc/window_spmv3f.cu)
 WIN_TOL = 1e-5
 PAP_TOL = 1e-4  # K4's column partials: sums over 384 rows, then over blocks
-# K4 vs its gather-form plain version: the same products in the same order,
-# relative to max|plain|; only FMA contraction differs.  The partials sum
-# 384 rows per block in the kernel's lane-and-warp order, the plain version
-# in torch.sum's.
+# K2-K4 vs their gather-form plain versions: the same products in the same
+# order, relative to max|plain|; only FMA contraction differs.  K4's
+# partials sum 384 rows per block in the kernel's lane-and-warp order, the
+# plain version in torch.sum's.
 GATHER_TOL = 1e-6
 GATHER_PAP_TOL = 1e-5
 LATTICE_TOL = 1e-5  # deltaH, card vs the port's CPU path
 WINDOWED_VS_GATHER_TOL = 2e-3  # deltaH, windowed vs gather (tests/test_fused_windowed.py)
 WIN, WIN_R, N_WIN = 384, 384, 3  # the lattice's window geometry
-TIER_PASSES = {"bf16x3": 3, "bf16x2": 2, "oh16": 2, "dma16": 2, "bf16": 1}
-# key, name, wrapper, the TPU kernel it replaces, its CUDA source
+# key, name, wrapper, the TPU kernel it replaces; all three in WINDOW_SOURCE
 WINDOW_KERNELS = (
-    ("K2", "window_spmv", tw.window_spmv_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:409",
-     "oscillink_tpu_torch/csrc/window_spmv.cu"),
-    ("K3", "window_spmv3", tw.window_spmv3_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:457",
-     "oscillink_tpu_torch/csrc/window_spmv.cu"),
-    ("K4", "window_spmv3f", tw.window_spmv3f_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:594",
-     "oscillink_tpu_torch/csrc/window_spmv3f.cu"),
+    ("K2", "window_spmv", tw.window_spmv_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:409"),
+    ("K3", "window_spmv3", tw.window_spmv3_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:457"),
+    ("K4", "window_spmv3f", tw.window_spmv3f_cuda, "oscillink_tpu/ops/pallas/window_spmv.py:594"),
 )
+WINDOW_SOURCE = "oscillink_tpu_torch/csrc/window_spmv3f.cu"
 
 QUICK = dict(n=120, d=128, k=6, chain=[2, 5, 7, 9], lamP=0.2)
 HEADLINE = dict(n=5000, d=128, k=6)  # bench.py's workload
@@ -337,12 +335,12 @@ def env(**values: str):
 def reset_counts() -> None:
     spmv.launches = 0
     bg.launches = 0
-    for _, _, fn, _, _ in WINDOW_KERNELS:
+    for _, _, fn, _ in WINDOW_KERNELS:
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {"K1": spmv.launches, **{name: fn.launches for name, _, fn, _, _ in WINDOW_KERNELS},
+    return {"K1": spmv.launches, **{name: fn.launches for name, _, fn, _ in WINDOW_KERNELS},
             "K5": bg.launches}
 
 
@@ -359,7 +357,8 @@ def window_case(shape: dict, seed: int) -> dict:
     """The bench graph at ``shape`` with its window geometry (the lattice's
     unless ``shape`` names W, R and n_win): its plan (the device builder,
     rows in their own order, a straggler cap that cannot truncate) and
-    one-hots on the card, X (padding rows zero) and a diagonal g."""
+    one-hots on the card (for the one-hot plain versions only), X (padding
+    rows zero) and a diagonal g."""
     n, d, k = shape["n"], shape["d"], shape["k"]
     W, R, n_win = shape.get("W", WIN), shape.get("R", WIN_R), shape.get("n_win", N_WIN)
     idx, wn = bench_graph(n, k, seed)
@@ -380,9 +379,7 @@ def window_case(shape: dict, seed: int) -> dict:
         "idx": idx_t, "wn": wn_t, "plan": plan, "oh": oh, "s_max": s_max, "geo": (W, R),
         "X": X, "Xpad": tw.pad_rows(X, plan.n_pad),
         "g": 1.5 + torch.rand(plan.n_pad, 1, generator=gen, device="cuda"),
-        "nnz": {"main": int(torch.count_nonzero(oh.main)),
-                "strag": int(torch.count_nonzero(oh.strag)),
-                "strag_w": int(torch.count_nonzero(plan.strag_w)),
+        "nnz": {"strag_w": int(torch.count_nonzero(plan.strag_w)),
                 "wnl": int(torch.count_nonzero(plan.wnl)),
                 "strag_seg": int(np.minimum(cnt, s_max).sum())},
         "info": {"W": W, "R": R, "n_win": n_win, **shape, "coverage": float(cov_t),
@@ -392,45 +389,42 @@ def window_case(shape: dict, seed: int) -> dict:
 
 
 def window_calls(case: dict, tier: str) -> dict:
-    """(kernel, plain) callables of K2, K3 and K4 at ``tier``; the one-hot is
-    stored in bf16 under oh16/dma16, as the lattice stores it.  K4 reads the
-    plan and no one-hot; its plain version here is the one-hot form."""
+    """(kernel, one-hot plain, gather plain) callables of K2, K3 and K4 at
+    ``tier``, each returning a tuple (K4: out and partials).  The kernels
+    read the plan and no one-hot; the one-hot is stored in bf16 under
+    oh16/dma16, as the CPU lattice stores it."""
     plan, oh, X, g, s_max = case["plan"], case["oh"], case["Xpad"], case["g"], case["s_max"]
     main = oh.main.to(torch.bfloat16) if tier in ("oh16", "dma16") else oh.main
-    geo = case["geo"]
+    W, R = case["geo"]
     return {
-        "K2": (lambda: tw.window_spmv_cuda(plan, main, X, *geo, tier),
-               lambda: tw.window_spmv_ref(plan, main, X, *geo, tier)),
-        "K3": (lambda: tw.window_spmv3_cuda(plan, main, oh.strag, X, *geo, s_max, tier),
-               lambda: tw.window_spmv3_ref(plan, main, oh.strag, X, *geo, s_max, tier)),
-        "K4": (lambda: tw.window_spmv3f_cuda(plan, X, g, *geo, s_max, tier),
-               lambda: tw.window_spmv3f_ref(plan, main, oh.strag, X, g, *geo, s_max, tier)),
+        "K2": (lambda: (tw.window_spmv_cuda(plan, X, W, R, tier),),
+               lambda: (tw.window_spmv_ref(plan, main, X, W, R, tier),),
+               lambda: (tw.window_spmv_gather_ref(plan, X, W, R, tier),)),
+        "K3": (lambda: (tw.window_spmv3_cuda(plan, X, W, R, s_max, tier),),
+               lambda: (tw.window_spmv3_ref(plan, main, oh.strag, X, W, R, s_max, tier),),
+               lambda: (tw.window_spmv3_gather_ref(plan, X, W, R, s_max, tier),)),
+        "K4": (lambda: tw.window_spmv3f_cuda(plan, X, g, W, R, s_max, tier),
+               lambda: tw.window_spmv3f_ref(plan, main, oh.strag, X, g, W, R, s_max, tier),
+               lambda: tw.window_spmv3f_gather_ref(plan, X, g, W, R, s_max, tier)),
     }
 
 
-def k4_gather_plain(case: dict, tier: str):
-    """K4's gather-form plain version on the case's inputs."""
-    return tw.window_spmv3f_gather_ref(case["plan"], case["Xpad"], case["g"], *case["geo"],
-                                       case["s_max"], tier)
-
-
 def window_vs_plain(case: dict, tier: str) -> dict:
-    """K2, K3, K4 (and K4's column partials) against their plain versions;
-    K4 also against its gather form, and two K4 launches bit-equal."""
+    """K2, K3, K4 (and K4's column partials) against their one-hot plain
+    versions and their gather forms, and each bit-equal from launch to
+    launch."""
     errs = {}
-    for name, (kern, plain) in window_calls(case, tier).items():
-        out, ref = kern(), plain()
-        pairs = [(name, out, ref, WIN_TOL)]
+    for name, (kern, plain, gather) in window_calls(case, tier).items():
+        out, again = kern(), kern()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"{name} differs from launch to launch ({tier}, {case['info']})")
+        del again
+        ref, gref = plain(), gather()
+        pairs = [(name, out[0], ref[0], WIN_TOL), (f"{name}_gather", out[0], gref[0], GATHER_TOL)]
         if name == "K4":
-            gref = k4_gather_plain(case, tier)
-            pairs = [(name, out[0], ref[0], WIN_TOL), ("K4_pap", out[1], ref[1], PAP_TOL),
-                     ("K4_gather", out[0], gref[0], GATHER_TOL),
-                     ("K4_gather_pap", out[1], gref[1], GATHER_PAP_TOL)]
-            again = kern()
-            torch.cuda.synchronize()
-            check(torch.equal(out[0], again[0]) and torch.equal(out[1], again[1]),
-                  f"K4 differs from launch to launch ({tier}, {case['info']})")
-            del gref, again
+            pairs += [("K4_pap", out[1], ref[1], PAP_TOL),
+                      ("K4_gather_pap", out[1], gref[1], GATHER_PAP_TOL)]
         for key, o, r, tol in pairs:
             torch.cuda.synchronize()
             err = float((o - r).abs().max())
@@ -438,80 +432,107 @@ def window_vs_plain(case: dict, tier: str) -> dict:
             check(bool(torch.isfinite(o).all()), f"{key} output not finite ({tier}, {case['info']})")
             check(err <= tol * scale, f"{key} != plain ({tier}, {case['info']}): {err} > {tol} * {scale}")
             errs[key] = err
+        del out, ref, gref
     return errs
 
 
-def k4_bound(case: dict) -> dict:
-    """The least time for one K4 apply: X read once (the straggler source
-    rows are rows of X), out written once, g, idxl and wnl, cs, the straggler
-    entries of the blocks that have any, the block counts and offsets, and
-    the partials, over the HBM rate; against one f32 multiply-add per live
-    slot or straggler and column plus the g, x ⊙ out and partial work, over
-    the f32 peak."""
+def poisoned_case(case: dict) -> dict:
+    """The case with a NaN in one row of its elected windows and an infinity
+    in another, and every live slot and straggler that reads either dropped
+    from the plan (rows no entry reads are taken first, real rows (< n)
+    before padding ones, never a padding straggler's source), so that no
+    row but the two themselves references a non-finite row."""
+    plan, (W, R), n = case["plan"], case["geo"], case["info"]["n"]
+    n_pad = plan.n_pad
+    dev = plan.cs.device
+    rows = torch.arange(n_pad, device=dev)
+    read = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    held = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    cols = []
+    for w in range(plan.n_windows):
+        cols.append((plan.cs[w].long()[rows // R] * W)[:, None] + plan.idxl[w].long())
+        read[cols[w][plan.wnl[w] != 0.0]] = True
+        held[(plan.cs[w].long()[:, None] * W + torch.arange(W, device=dev)).reshape(-1)] = True
+    src = plan.strag_src.long()
+    read[src[plan.strag_w != 0.0]] = True
+    held[src[plan.strag_w == 0.0]] = False
+    cand = torch.nonzero(held)[:, 0]
+    key = (read[cand].long() * 2 + (cand >= n).long()) * n_pad + cand
+    bad = cand[torch.sort(key).indices[:2]]
+    check(bad.numel() == 2, f"no two window rows to poison ({case['info']})")
+    wnl = torch.stack([torch.where(torch.isin(cols[w], bad), 0.0, plan.wnl[w])
+                       for w in range(plan.n_windows)])
+    strag_w = torch.where(torch.isin(src, bad), 0.0, plan.strag_w)
+    X = case["Xpad"].clone()
+    X[bad[0]] = float("nan")
+    X[bad[1]] = float("inf")
+    dropped = {"slots": int(torch.count_nonzero(plan.wnl) - torch.count_nonzero(wnl)),
+               "stragglers": int(torch.count_nonzero(plan.strag_w) - torch.count_nonzero(strag_w))}
+    return {**case, "plan": plan._replace(wnl=wnl, strag_w=strag_w), "Xpad": X,
+            "rows": bad, "dropped": dropped}
+
+
+def window_nonfinite(case: dict) -> dict:
+    """The windowed tier's NaN/Inf behaviour on the card (gather semantics)
+    on `poisoned_case`'s input: K2, K3 and K4 equal their gather forms (NaN
+    where they have NaN), and only the two poisoned rows' outputs are not
+    finite.  The one-hot forms' non-finite rows are counted beside them:
+    they spread the values to every row of each block whose windows hold
+    them."""
+    pc = poisoned_case(case)
+    bad_rows = pc["rows"].sort().values
+    out = {"rows": bad_rows.tolist(), "dropped": pc["dropped"]}
+    for name, (kern, plain, gather) in window_calls(pc, "bf16x3").items():
+        o, r = kern()[0], gather()[0]
+        torch.cuda.synchronize()
+        scale = float(r[torch.isfinite(r)].abs().max())
+        check(torch.allclose(o, r, rtol=0.0, atol=GATHER_TOL * scale, equal_nan=True),
+              f"{name} != its gather form on non-finite input ({case['info']})")
+        bad = torch.nonzero(~torch.isfinite(o).all(dim=1))[:, 0]
+        check(torch.equal(bad, bad_rows),
+              f"{name}: rows {bad.tolist()[:8]} not finite, expected {bad_rows.tolist()} only")
+        one_hot = plain()[0]
+        out[name] = {"nonfinite_rows": int(bad.numel()),
+                     "onehot_nonfinite_rows": int((~torch.isfinite(one_hot).all(dim=1)).sum())}
+        del o, r, one_hot
+    return out
+
+
+def window_bound(case: dict, name: str) -> dict:
+    """The least time for one apply of K2, K3 or K4 (``bound_ms``,
+    ``bound_by``): X read once (the straggler source rows are rows of X),
+    out written once, idxl, wnl and cs; K3 and K4 also the straggler
+    entries of the blocks' segments and the block counts and offsets; K4
+    also g and the partials; over the HBM rate.  Against it one f32
+    multiply-add per live slot (K3, K4: and live straggler) and column, K4
+    also the g, x ⊙ out and partial work, over the f32 peak."""
     plan, nnz = case["plan"], case["nnz"]
     n_pad, d = case["Xpad"].shape
     blocks = plan.n_blocks
-    nbytes = (2 * n_pad * d * 4 + n_pad * 4 + 2 * plan.idxl.numel() * 4 + plan.cs.numel() * 4
-              + nnz["strag_seg"] * 12 + 2 * blocks * 4 + blocks * d * 4)
-    ops = 2 * (nnz["wnl"] + nnz["strag_w"]) * d + 3 * n_pad * d
+    nbytes = 2 * n_pad * d * 4 + 2 * plan.idxl.numel() * 4 + plan.cs.numel() * 4
+    ops = 2 * nnz["wnl"] * d
+    if name != "K2":
+        nbytes += nnz["strag_seg"] * 12 + 2 * blocks * 4
+        ops += 2 * nnz["strag_w"] * d
+    if name == "K4":
+        nbytes += n_pad * 4 + blocks * d * 4
+        ops += 3 * n_pad * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes}
 
 
-def window_bound(case: dict, name: str, tier: str = "bf16x3") -> dict:
-    """The least time for one apply of K2 or K3 (``bound_ms``, ``bound_by``):
-    each of the kernel's inputs read once and each output written once over
-    the HBM rate, against the products this plan's data needs — one per
-    nonzero one-hot entry and column, in the tier's bf16 passes — over the
-    tensor cores' peak, plus the f32 elementwise work.  Apart from it,
-    ``dense_ceiling_ms``: the dense one-hot products the design computes
-    (most of them by a zero weight) over the same peak.  Straggler terms
-    count only the blocks of this plan that have stragglers.  K4 reads no
-    one-hot: `k4_bound`."""
-    if name == "K4":
-        return k4_bound(case)
-    plan, s_max, nnz = case["plan"], case["s_max"], case["nnz"]
-    n_pad, d = case["Xpad"].shape
-    W, R = case["geo"]
-    cols = plan.n_windows * W
-    blocks = plan.n_blocks
-    strag_blocks = case["info"]["blocks_with_stragglers"]
-    passes, s_passes = TIER_PASSES[tier], (1 if tier == "dma16" else 2)
-    oh_item = 2 if tier in ("oh16", "dma16") else 4
-    nbytes = n_pad * cols * oh_item + 2 * n_pad * d * 4 + plan.cs.numel() * 4
-    needed = passes * 2 * nnz["main"] * d
-    dense = passes * 2 * n_pad * cols * d
-    f32_ops = n_pad * d
-    if name != "K2":
-        c_item = 2 if tier == "dma16" else 4
-        nbytes += (strag_blocks * R * s_max * 2 + plan.strag_w.numel() * d * c_item
-                   + 2 * blocks * 4)
-        needed += s_passes * 2 * nnz["strag"] * d
-        dense += s_passes * 2 * strag_blocks * R * s_max * d
-        f32_ops += nnz["strag_w"] * d  # the contributions strag_w * X[strag_src]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = needed / BF16_FLOPS + f32_ops / F32_FLOPS
-    return {
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "dense_ceiling_ms": 1e3 * (dense / BF16_FLOPS + f32_ops / F32_FLOPS),
-    }
-
-
 def window_timing(case: dict) -> dict:
     """K2-K4 at the default tier (bf16x3) with CUDA events, beside their
-    plain versions, their bounds, torch.sparse.mm of the same operator as a
-    CSR matrix, and K1 on the same graph; K4 also beside its gather-form
-    plain version.  K3 is timed through its wrapper, the gather of the
-    straggler contributions included."""
+    one-hot and gather-form plain versions, their bounds, torch.sparse.mm of
+    the same operator as a CSR matrix, and K1 on the same graph."""
     n = case["info"]["n"]
     X = case["X"]
     A = csr_of(case["idx"], case["wn"])
     lib_out = torch.sparse.mm(A, X)
     k1_out = spmv.lap_matvec_cuda(case["idx"], case["wn"], X)
-    k3_out = window_calls(case, "bf16x3")["K3"][0]()[:n]
+    k3_out = window_calls(case, "bf16x3")["K3"][0]()[0][:n]
     torch.cuda.synchronize()
     lib_err = float((lib_out - k3_out).abs().max())
     check(lib_err <= 1e-4 * float(lib_out.abs().max()),
@@ -520,12 +541,12 @@ def window_timing(case: dict) -> dict:
     k1_ms = cuda_ms(lambda: spmv.lap_matvec_cuda(case["idx"], case["wn"], X), 20)
     k1_err = float((k1_out - k3_out).abs().max())
     rows = {}
-    for name, (kern, plain) in window_calls(case, "bf16x3").items():
+    for name, (kern, plain, gather) in window_calls(case, "bf16x3").items():
         rows[name] = {
-            "ms": cuda_ms(kern, 50 if name == "K4" else 10), "plain_ms": cuda_ms(plain, 3),
-            **window_bound(case, name), "library_ms": library_ms,
+            "ms": cuda_ms(kern, 50), "plain_ms": cuda_ms(plain, 3),
+            "gather_plain_ms": cuda_ms(gather, 3), **window_bound(case, name),
+            "library_ms": library_ms,
         }
-    rows["K4"]["gather_plain_ms"] = cuda_ms(lambda: k4_gather_plain(case, "bf16x3"), 3)
     emit("window_timing", **case["info"], tier="bf16x3", k1_same_graph_ms=k1_ms,
          k1_vs_k3_max_abs=k1_err, library_vs_k3_max_abs=lib_err, nnz=case["nnz"], **rows)
     return {"rows": rows, "k1_ms": k1_ms}
@@ -559,22 +580,30 @@ def clustered_corpus(n: int, d: int, seed: int = 0):
 
 
 def ctx_info(lat: Oscillink) -> dict:
+    """The window context's plan, geometry and coverage; the card's context
+    must hold no one-hot (its kernels read the plan), the CPU's must."""
     ctx = lat._window_ctx
     check(ctx is not None, "OSCILLINK_WINDOWED_MATVEC=1 built no window context")
+    on_card = lat.device.type == "cuda"
+    check((ctx.oh is None) == on_card,
+          f"the {lat.device.type} lattice's window context "
+          f"{'holds a one-hot' if on_card else 'lacks the one-hot its plain versions read'}")
     cnt = ctx.plan.strag_cnt.cpu()
     return {
         "coverage": lat._window_coverage,
         "stragglers": int(torch.count_nonzero(ctx.plan.strag_w)),
         "blocks_with_stragglers": int(torch.count_nonzero(cnt)),
         "blocks": int(cnt.numel()),
-        "s_max": int(ctx.oh.strag.shape[1]),
+        "W": ctx.W,
+        "s_max": ctx.s_max,
         "n_pad": ctx.plan.n_pad,
+        "onehot_built": ctx.oh is not None,
     }
 
 
 def windowed_pass(Y, psi, k: int) -> tuple[dict, dict]:
     """One pass of the windowed main path on the card: build (graph, locality
-    order, plan, one-hots), settle, U*, light and full receipt, bundle.
+    order, plan; no one-hots), settle, U*, light and full receipt, bundle.
     Returns the phase times and what the pass counted and produced."""
     t = {}
     t0 = time.perf_counter()
@@ -617,19 +646,16 @@ def windowed_pass(Y, psi, k: int) -> tuple[dict, dict]:
 
 def window_ctx_timing(lat: Oscillink) -> dict:
     """The window context's build on a built lattice, timed to a sync: the
-    locality order alone, the one-hots alone, and the whole context (order,
-    device plan with its one host read, one-hots)."""
+    locality order alone, and the whole context (order, device plan with its
+    one host read; on the card no one-hots)."""
     t = {}
     t0 = time.perf_counter()
     _locality_order(lat._Y_dev)
     t["locality_order_ms"] = sync_ms(t0)
-    ctx = lat._window_ctx
-    t0 = time.perf_counter()
-    tw.build_onehot(ctx.plan, WIN, ctx.oh.strag.shape[1])
-    t["onehot_ms"] = sync_ms(t0)
     t0 = time.perf_counter()
     lat._maybe_build_window_ctx()
     t["window_ctx_ms"] = sync_ms(t0)
+    ctx_info(lat)
     return t
 
 
@@ -681,13 +707,21 @@ def windowed_corpus() -> int:
 
 
 def windowed_flow(lat: Oscillink, psi) -> dict:
-    """A forced-windowed lattice: settle, full receipt, bundle."""
+    """A forced-windowed lattice: settle, U*, full receipt, bundle; settle
+    and U* timed to a sync (one pass, the kernels warm from the phases
+    before)."""
     info = ctx_info(lat)
     lat.set_query(psi)
+    t0 = time.perf_counter()
     st = lat.settle(dt=1.0, max_iters=12, tol=1e-3)
+    settle_ms = sync_ms(t0)
+    t0 = time.perf_counter()
+    lat._solve_ustar_device()  # the device solve alone; receipt() then hits the cache
+    ustar_ms = sync_ms(t0)
     rec = lat.receipt()
     return {
-        **info, "deltaH": rec["deltaH_total"], "null_points": len(rec["null_points"]),
+        **info, "settle_ms": settle_ms, "ustar_ms": ustar_ms,
+        "deltaH": rec["deltaH_total"], "null_points": len(rec["null_points"]),
         "bundle": [b["id"] for b in lat.bundle(k=8)], "state_sig": rec["meta"]["state_sig"],
         "settle_iters": st["iters"], "ustar_iters": rec["meta"]["ustar_iters"],
         "window_precision": rec["meta"].get("window_precision"),
@@ -818,9 +852,9 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
 
-    # 1. build K1, K2-K3, K4 and K5 from the checkout's sources, one nvcc per
+    # 1. build K1, K2-K4 and K5 from the checkout's sources, one nvcc per
     # source, all started together
-    sources = ("spmv", "window_spmv", "window_spmv3f", "bucket_gather")
+    sources = ("spmv", "window_spmv3f", "bucket_gather")
     t0 = time.perf_counter()
     kbuild.build(list(sources))
     build_s = time.perf_counter() - t0
@@ -844,8 +878,9 @@ def main() -> int:
 
     # 3. K2-K4 against their plain versions, every precision tier, on the
     # kernel-bench graph at the corpus shape, at a ragged N and D, in the
-    # W = 512 / R = 256 / 2-window geometry and at 40 slots a row; then
-    # their times at the corpus shape (default tier)
+    # W = 512 / R = 256 / 2-window geometry and at 40 slots a row; on
+    # non-finite input at each; then their times at the corpus shape
+    # (default tier)
     win_errs: dict = {}
     for shape, seed in ((CORPUS, 0), (WIN_RAGGED, 1), (WIN_512, 2), (WIN_K40, 3)):
         case = window_case(shape, seed)
@@ -856,11 +891,12 @@ def main() -> int:
         for tier in tw.PRECISION_TIERS:
             errs = window_vs_plain(case, tier)
             emit("window_vs_plain", **info, tier=tier, max_abs_err=errs,
-                 tol={"K2-K4": WIN_TOL, "K4_pap": PAP_TOL, "K4_gather": GATHER_TOL,
+                 tol={"K2-K4": WIN_TOL, "K4_pap": PAP_TOL, "K2-K4_gather": GATHER_TOL,
                       "K4_gather_pap": GATHER_PAP_TOL, "relative_to": "max|plain|"},
-                 k4_bit_equal_repeat=True)
+                 bit_equal_repeat=True)
             for key, err in errs.items():
                 win_errs[key] = max(win_errs.get(key, 0.0), err)
+        emit("window_nonfinite", **info, tier="bf16x3", **window_nonfinite(case))
         if shape is CORPUS:
             win_timing = window_timing(case)
         del case
@@ -953,8 +989,8 @@ def main() -> int:
         win_launches["K2"] = run["launches"]
         ctx = lat._window_ctx
         Xp = tw.pad_rows(lat._U_dev.index_select(0, ctx.order.long()), ctx.plan.n_pad)
-        first = tw.lap_matvec_windowed(ctx.plan, ctx.oh, Xp)
-        second = tw.lap_matvec_windowed(ctx.plan, ctx.oh, Xp)
+        first = tw.lap_matvec_windowed(ctx.plan, ctx.oh, Xp, W=ctx.W, s_max=ctx.s_max)
+        second = tw.lap_matvec_windowed(ctx.plan, ctx.oh, Xp, W=ctx.W, s_max=ctx.s_max)
         torch.cuda.synchronize()
         check(torch.equal(first, second), "K2 + epilogue differs from run to run")
         emit("windowed_narrow_d_repeat", bit_equal=True)
@@ -979,17 +1015,17 @@ def main() -> int:
     }] + [{
         "name": kname,
         "route": "cuda",
-        "source": source,
+        "source": WINDOW_SOURCE,
         "replaces": replaces,
         "launches": win_launches[key],
         "max_abs_err": win_errs[key],
         **win_timing["rows"][key],
         "shape": "bench graph N=131072 (Npad 131328) D=768 K=8, W=R=384, 3 windows, bf16x3",
         "k1_same_graph_ms": win_timing["k1_ms"],
+        "gather_plain_max_abs_err": win_errs[f"{key}_gather"],
         **({"pap_max_abs_err": win_errs["K4_pap"],
-            "gather_plain_max_abs_err": win_errs["K4_gather"],
             "gather_plain_pap_max_abs_err": win_errs["K4_gather_pap"]} if key == "K4" else {}),
-    } for key, kname, _, replaces, source in WINDOW_KERNELS] + [k5_row]}), flush=True)
+    } for key, kname, _, replaces in WINDOW_KERNELS] + [k5_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,10 @@ Window context (``OSCILLINK_WINDOWED_MATVEC``).  The JAX package routes
 coverage >= 0.92 or a bounded straggler window, and a full-width memory
 budget.  None of those carry over to the H100 until ledger lines support
 them, so the port selects explicitly: ``1`` builds the context (locality
-order, device plan, one-hots) and accepts it through `accept_window_plan`,
-the JAX package's forced decision — which still refuses a straggler
-overflow or a plan whose straggler window does not fit — while ``0``,
-``auto`` and unset keep the gather path (``auto`` and unset log
+order, device plan; the one-hots only on the CPU) and accepts it through
+`accept_window_plan`, the JAX package's forced decision — which still
+refuses a straggler overflow or a plan whose straggler window does not
+fit — while ``0``, ``auto`` and unset keep the gather path (``auto`` and unset log
 ``window_ctx_skipped`` with the reason).  The column-chunk and full-width
 budget logic is not ported: the port's solves always run full width.  A
 lattice with a chain prior solves on the gather path whatever the context.
@@ -308,9 +308,10 @@ class OscillinkLattice:
     def _maybe_build_window_ctx(self) -> None:
         """Build the windowed-matvec context when OSCILLINK_WINDOWED_MATVEC
         forces it (see the module docstring for why the port does not
-        auto-route).  Order, plan and one-hots are built on the lattice's
-        device; only the plan's (coverage, stragglers, fits, last offset)
-        scalars come to the host."""
+        auto-route).  Order and plan are built on the lattice's device, and
+        the one-hots only on the CPU, whose plain versions read them; only
+        the plan's (coverage, stragglers, fits, last offset) scalars come to
+        the host."""
         self._window_ctx: Optional[WindowCtx] = None
         self._window_coverage: Optional[float] = None
         mode = os.getenv("OSCILLINK_WINDOWED_MATVEC", "auto").strip().lower()
@@ -359,12 +360,18 @@ class OscillinkLattice:
             )
             return
         plan = right_size_stragglers(plan, off_last, s_max)
-        oh = build_onehot(plan, win_w, s_max)
-        if _env_precision() in ("oh16", "dma16"):
-            # bf16-stored one-hot: quantizes the edge weights to bf16 (opt-in;
-            # the tier is reported in receipt meta as window_precision)
-            oh = oh._replace(main=oh.main.to(torch.bfloat16))
-        self._window_ctx = WindowCtx(plan=plan, oh=oh, order=order, inv_order=inv)
+        oh = None
+        if self.device.type == "cpu":
+            # the CPU route's one-hot plain versions read the one-hots; the
+            # card's kernels read the plan alone
+            oh = build_onehot(plan, win_w, s_max)
+            if _env_precision() in ("oh16", "dma16"):
+                # bf16-stored one-hot: quantizes the edge weights to bf16
+                # (opt-in; the tier is reported in receipt meta as
+                # window_precision)
+                oh = oh._replace(main=oh.main.to(torch.bfloat16))
+        self._window_ctx = WindowCtx(plan=plan, order=order, inv_order=inv, W=win_w, s_max=s_max,
+                                     oh=oh)
         self._log(
             "window_ctx",
             {

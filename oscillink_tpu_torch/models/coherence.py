@@ -147,12 +147,16 @@ def settle_step(
 
 
 class WindowCtx(NamedTuple):
-    """Locality-ordered window-matvec context, built once per graph."""
+    """Locality-ordered window-matvec context, built once per graph.  The
+    kernels read the plan alone; the one-hots exist only for the CPU route's
+    one-hot plain versions (None on the card)."""
 
     plan: WindowPlan
-    oh: OneHots
     order: torch.Tensor  # [N] int32: permuted position -> original row
     inv_order: torch.Tensor  # [N] int32: original row -> permuted position
+    W: int  # window rows
+    s_max: int  # straggler window (rows of a block's segment read)
+    oh: Optional[OneHots] = None
 
 
 def _permuted_operands(ctx: WindowCtx, arrays):
@@ -185,7 +189,7 @@ def solve_stationary_windowed(
     def M_mul(X):
         return (
             lam.lamG * X
-            + lam.lamC * lap_matvec_windowed(ctx.plan, ctx.oh, X)
+            + lam.lamC * lap_matvec_windowed(ctx.plan, ctx.oh, X, W=ctx.W, s_max=ctx.s_max)
             + lam.lamQ * (Bp[:, None] * X)
         )
 
@@ -216,7 +220,7 @@ def solve_stationary_windowed_fused(
     g = ((lam.lamG + lam.lamC + lam.lamQ * Bp) / s)[:, None]
 
     def K_mul(X):
-        return k_matvec_windowed(ctx.plan, ctx.oh, X, g)
+        return k_matvec_windowed(ctx.plan, ctx.oh, X, g, W=ctx.W, s_max=ctx.s_max)
 
     Up, iters, res = cg_solve_kpap(K_mul, s, rhs, x0=x0p, M_diag=M_diag, tol=tol, max_iters=max_iters)
     return _unpermute(ctx, Up), iters, res
@@ -249,7 +253,7 @@ def settle_step_windowed_fused(
     M_diag = 1.0 + dt * (lam.lamG + lam.lamQ * Bp) if use_jacobi else None
 
     def K_mul(X):
-        return k_matvec_windowed(ctx.plan, ctx.oh, X, g)
+        return k_matvec_windowed(ctx.plan, ctx.oh, X, g, W=ctx.W, s_max=ctx.s_max)
 
     Up, iters, res = cg_solve_kpap(K_mul, s, rhs, x0=x0p, M_diag=M_diag, tol=tol, max_iters=max_iters)
     return _unpermute(ctx, Up), iters, res
@@ -279,7 +283,7 @@ def settle_step_windowed(
     def A_mul(X):
         return X + dt * (
             lam.lamG * X
-            + lam.lamC * lap_matvec_windowed(ctx.plan, ctx.oh, X)
+            + lam.lamC * lap_matvec_windowed(ctx.plan, ctx.oh, X, W=ctx.W, s_max=ctx.s_max)
             + lam.lamQ * (Bp[:, None] * X)
         )
 

@@ -5,46 +5,56 @@ blocks of R; for each block the plan elects ``n_windows`` W-aligned row
 windows of X (after locality ordering, mutual-kNN neighbours concentrate
 near the diagonal) and keeps each row's in-window neighbours as
 ``idxl``/``wnl`` slots.  Edges outside every window ("stragglers") are
-listed by destination row, grouped by row block.  K2 and K3, like the TPU
-kernels, apply the windows as a dense ``[R, n_windows*W]`` one-hot *weight*
-matrix built once per graph, and the stragglers as an exact 0/1 bf16
-one-hot against a per-apply contribution buffer
-``contrib = strag_w ⊙ X[strag_src]``.
+listed by destination row, grouped by row block.  The TPU kernels apply the
+windows as a dense ``[R, n_windows*W]`` one-hot *weight* matrix built once
+per graph, and the stragglers as an exact 0/1 bf16 one-hot against the
+rows ``strag_w ⊙ X[strag_src]`` gathered per apply.
 
-The kernels:
+The kernels, all three in ``oscillink_tpu_torch/csrc/window_spmv3f.cu``,
+compile-time variants of one kernel that reads the plan and no one-hot: it
+stages the windows in shared memory, gathers each row's live slots from
+them and each row's stragglers from X:
 
-* K2 ``window_spmv_cuda`` — windows only: ``X_blk − Σ_w OH_w @ X_win(w)``.
-  `lap_matvec_windowed` adds the straggler epilogue in plain PyTorch.
-* K3 ``window_spmv3_cuda`` — K2 minus the in-kernel straggler correction.
-  Both in ``oscillink_tpu_torch/csrc/window_spmv.cu`` (WMMA products of the
-  one-hot).
+* K2 ``window_spmv_cuda`` — windows only: ``X − Σ_w OH_w @ X_win(w)``.
+  `lap_matvec_windowed` subtracts the stragglers after it
+  (`_stragglers_gather`, plain PyTorch).
+* K3 ``window_spmv3_cuda`` — K2 minus each row's stragglers.
 * K4 ``window_spmv3f_cuda`` — ``g ⊙ x − windows − stragglers`` plus the
   per-block column partials ``Σ_rows x ⊙ out`` (the CG denominator
-  ⟨p, Kp⟩, summed over blocks by the wrapper, without atomics).  Its CUDA
-  source, ``csrc/window_spmv3f.cu``, reads no one-hot: it stages the
-  windows in shared memory and gathers each row's live slots from them,
-  and each row's stragglers from X.
+  ⟨p, Kp⟩, summed over blocks by the wrapper, without atomics).
 
-Beside each kernel is its plain PyTorch version (``window_spmv_ref``,
-``window_spmv3_ref``, ``window_spmv3f_ref``): the precision tier's own
-arithmetic — bf16 round-to-nearest hi/lo splits of the one-hot and of the X
-window, products summed in float32 — in a per-block batched form.  K4 has a
-second, ``window_spmv3f_gather_ref``: the kernel's gather-form arithmetic,
-which the one-hot form matches to 2^-16 a product.  A CPU tensor takes the
-one-hot plain versions; a CUDA tensor launches the kernel or raises.  Each
-wrapper counts its launches in its ``launches`` attribute.
+Beside each kernel are two plain PyTorch versions.  The one-hot forms
+(``window_spmv_ref``, ``window_spmv3_ref``, ``window_spmv3f_ref``) take the
+precision tier's own arithmetic — bf16 round-to-nearest hi/lo splits of the
+one-hot and of the X window, products summed in float32 — in a per-block
+batched form, as the TPU kernels do; the CPU route takes them, and the
+tests hold them to the JAX kernels.  The gather forms
+(``window_spmv_gather_ref``, ``window_spmv3_gather_ref``,
+``window_spmv3f_gather_ref``) are the kernels' arithmetic, which the one-hot
+forms match to 2^-16 a product.  A CPU tensor takes the one-hot plain
+versions; a CUDA tensor launches the kernel or raises.  Each wrapper
+counts its launches in its ``launches`` attribute.
+
+Non-finite values.  The gather forms and the kernels compute a row from
+the rows it references only (its own, its live slots', its live
+stragglers' sources): a NaN or an infinity in a window row that no row
+references stays out of every other row.  The one-hot forms, like the TPU
+kernels, spread it through 0·NaN to every row of each block whose windows
+hold it.  At the lattice the two cannot differ: one non-finite entry of X
+makes the CG scalars non-finite for every row.
 
 The precision tier (``OSCILLINK_WINDOW_PRECISION``) is read per call:
 bf16x3 (default; ``a_hi·b_hi + a_hi·b_lo + a_lo·b_hi``), bf16x2
 (``a_hi·b_hi + a_lo·b_hi``), oh16 and dma16 (bf16-stored one-hot,
-``a·b_hi + a·b_lo``; dma16 also stores the straggler contributions in
+``a·b_hi + a·b_lo``; dma16 also stores the weighted straggler rows in
 bf16), bf16 (one pass).  ``a`` is the one-hot, ``b`` the X window.
 
 Plan builders: `build_window_plan_device` builds on the graph's device and
 hands back only the (coverage, straggler count, fits) scalars for the
 accept decision; the lattice and ``chip_smoke.py`` use it.
 `build_window_plan` is the host NumPy builder (the port's own copy of the
-JAX package's), kept for the parity tests.
+JAX package's), kept for the parity tests.  `build_onehot` builds the
+one-hots for the CPU route; no card path reads them.
 """
 
 from __future__ import annotations
@@ -78,6 +88,8 @@ __all__ = [
     "window_spmv_ref",
     "window_spmv3_ref",
     "window_spmv3f_ref",
+    "window_spmv_gather_ref",
+    "window_spmv3_gather_ref",
     "window_spmv3f_gather_ref",
     "window_spmv_cuda",
     "window_spmv3_cuda",
@@ -90,11 +102,6 @@ DEFAULT_SMAX = 512  # per-block straggler segment rows read by K3/K4
 _LANE = 8
 PRECISION_TIERS = ("bf16x3", "bf16x2", "bf16", "oh16", "dma16")
 
-# CUDA kernel geometry limits (csrc/window_spmv.cu): one warp per 32 rows of
-# a row block, a k chunk of 32 one-hot columns
-_MAX_R = 512
-_KC = 32
-
 
 class WindowPlan(NamedTuple):
     """Window plan as tensors on one device; the W/R geometry is passed
@@ -104,11 +111,11 @@ class WindowPlan(NamedTuple):
     i's stragglers occupy ``[strag_off[i], strag_off[i] + p_i)`` where p_i is
     the block's count rounded up to 8 (padding entries carry w = 0 and point
     their dst at the block's last row, keeping the global dst order
-    non-decreasing).  K3 reads a fixed ``[s_max]``-row slice starting at
-    ``strag_off[i]``; rows past the block's own segment are masked out by
-    the straggler one-hot.  K4 reads ``[strag_off[i], + min(strag_cnt[i],
-    s_max))`` and takes each row's run in it as one contiguous range, so it
-    relies on the dst order."""
+    non-decreasing).  The one-hot forms read a fixed ``[s_max]``-row slice
+    starting at ``strag_off[i]``; rows past the block's own segment are
+    masked out by the straggler one-hot.  The kernels and the gather forms
+    read ``[strag_off[i], + min(strag_cnt[i], s_max))`` and take each row's
+    run in it as one contiguous range, so they rely on the dst order."""
 
     cs: torch.Tensor  # [n_win, B] int32 — elected window ids (units of W rows)
     idxl: torch.Tensor  # [n_win, Npad, K] int32 — in-window local col ids
@@ -590,38 +597,39 @@ def _merged_weights(idxl: torch.Tensor, wnl: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def window_spmv3f_gather_ref(plan: WindowPlan, Xpad: torch.Tensor, g: torch.Tensor, W: int,
-                             R: int, s_max: int, precision: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain K4 in gather form, the arithmetic of ``csrc/window_spmv3f.cu``:
-
-        out[r] = g[r]·x[r] − Σ_w Σ_a A(wn_a)·B(x[cs[w, blk]·W + idxl_a])
-                 − Σ_{e in r's straggler run} C(strag_w[e]·x[strag_src[e]])
-
-    per live slot (duplicate columns merged as the one-hot merges them,
-    `_merged_weights`) and per live straggler entry of the block's segment
-    ``[strag_off, strag_off + min(strag_cnt, s_max))``, in slot and entry
-    order.  A, B, C are the tier's roundings: A = bf16 under oh16, dma16 and
-    bf16; B = bf16 under bf16x2 and bf16; C = bf16 under dma16; identity
-    otherwise.  The straggler term is a per-row segment sum over each row's
-    run of the destination-sorted list, not ``index_add_`` (atomics on CUDA).
-    Returns (out, Σ_blocks Σ_rows x ⊙ out) like `window_spmv3f_ref`."""
+def _windows_gather(plan: WindowPlan, Xpad: torch.Tensor, acc: torch.Tensor, W: int, R: int,
+                    precision: str) -> torch.Tensor:
+    """``acc − Σ_w Σ_a A(wn_a)·B(x[cs[w, blk]·W + idxl_a])`` per live slot
+    (repeated columns merged as the one-hot merges them, `_merged_weights`),
+    in slot order.  A = bf16 under oh16, dma16 and bf16; B = bf16 under
+    bf16x2 and bf16; identity otherwise."""
     if precision not in PRECISION_TIERS:
         raise ValueError(f"unknown window precision tier {precision!r}")
-    n_pad, d = Xpad.shape
-    dev = Xpad.device
-    rows = torch.arange(n_pad, device=dev)
-    blk = rows // R
-    a_bf16 = precision in ("oh16", "dma16", "bf16")
+    blk = torch.arange(Xpad.shape[0], device=Xpad.device) // R
     xs = _bf16(Xpad) if precision in ("bf16x2", "bf16") else Xpad
-    acc = g * Xpad
     for w in range(plan.n_windows):
         base = plan.cs[w].long()[blk] * W
         wt = _merged_weights(plan.idxl[w], plan.wnl[w])
-        if a_bf16:
+        if precision in ("oh16", "dma16", "bf16"):
             wt = _bf16(wt)
         for a in range(wt.shape[1]):
             nb = xs.index_select(0, base + plan.idxl[w, :, a].long())
             acc = acc - torch.where(wt[:, a:a + 1] != 0.0, wt[:, a:a + 1] * nb, 0.0)
+    return acc
+
+
+def _stragglers_gather(plan: WindowPlan, Xpad: torch.Tensor, acc: torch.Tensor, R: int,
+                       s_max: int, precision: str) -> torch.Tensor:
+    """``acc − Σ_{e in r's run} C(strag_w[e]·x[strag_src[e]])`` for every
+    row r: its run of the destination-sorted list within its block's
+    segment ``[strag_off, strag_off + min(strag_cnt, s_max))``, live
+    entries only, subtracted one at a time in entry order (C = bf16 under
+    dma16, identity otherwise).  It is a per-row segment walk, not
+    ``index_add_``, whose CUDA sum uses atomics: the result repeats to the
+    bit.  K2's straggler epilogue on both devices."""
+    n_pad = Xpad.shape[0]
+    rows = torch.arange(n_pad, device=Xpad.device)
+    blk = rows // R
     off = plan.strag_off.long()[blk]
     end = off + torch.clamp(plan.strag_cnt.long(), max=s_max)[blk]
     dst = plan.strag_dst
@@ -638,20 +646,43 @@ def window_spmv3f_gather_ref(plan: WindowPlan, Xpad: torch.Tensor, g: torch.Tens
         if precision == "dma16":
             c = _bf16(c)
         acc = acc - torch.where(live[:, None], c, 0.0)
+    return acc
+
+
+def window_spmv_gather_ref(plan: WindowPlan, Xpad: torch.Tensor, W: int, R: int,
+                           precision: str) -> torch.Tensor:
+    """Plain K2 in gather form, the arithmetic of ``csrc/window_spmv3f.cu``'s
+    K2 variant: ``out[r] = x[r] − Σ_w Σ_a A(wn_a)·B(x[cs[w, blk]·W + idxl_a])``
+    (`_windows_gather`)."""
+    return _windows_gather(plan, Xpad, Xpad, W, R, precision)
+
+
+def window_spmv3_gather_ref(plan: WindowPlan, Xpad: torch.Tensor, W: int, R: int, s_max: int,
+                            precision: str) -> torch.Tensor:
+    """Plain K3 in gather form: `window_spmv_gather_ref` minus each row's
+    stragglers (`_stragglers_gather`), K4's arithmetic with g ≡ 1 and no
+    partials."""
+    out = window_spmv_gather_ref(plan, Xpad, W, R, precision)
+    return _stragglers_gather(plan, Xpad, out, R, s_max, precision)
+
+
+def window_spmv3f_gather_ref(plan: WindowPlan, Xpad: torch.Tensor, g: torch.Tensor, W: int,
+                             R: int, s_max: int, precision: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain K4 in gather form, the arithmetic of ``csrc/window_spmv3f.cu``:
+
+        out[r] = g[r]·x[r] − Σ_w Σ_a A(wn_a)·B(x[cs[w, blk]·W + idxl_a])
+                 − Σ_{e in r's straggler run} C(strag_w[e]·x[strag_src[e]])
+
+    (`_windows_gather`, `_stragglers_gather`).  Returns (out, Σ_blocks
+    Σ_rows x ⊙ out) like `window_spmv3f_ref`."""
+    n_pad, d = Xpad.shape
+    acc = _windows_gather(plan, Xpad, g * Xpad, W, R, precision)
+    acc = _stragglers_gather(plan, Xpad, acc, R, s_max, precision)
     pap = torch.sum((Xpad * acc).view(n_pad // R, R, d), dim=1)
     return acc, torch.sum(pap, dim=0)
 
 
 # -- CUDA wrappers ---------------------------------------------------------
-
-# (a_lo·b_hi, a_hi·b_lo) terms of each tier beside a_hi·b_hi
-_TIER_TERMS = {
-    "bf16x3": (1, 1),
-    "bf16x2": (1, 0),
-    "oh16": (0, 1),
-    "dma16": (0, 1),
-    "bf16": (0, 0),
-}
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -659,206 +690,142 @@ _LL = ctypes.c_longlong
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = load_library("window_spmv")
-    # cs, n_win, oh, oh_bf16, X, out, n_pad, d, W, R, alo, blo
-    common = [_P, _I, _P, _I, _P, _P, _LL, _I, _I, _I, _I, _I]
-    # oh3, contrib, c_bf16, strag_off, strag_cnt, s_max
-    strag = [_P, _P, _I, _P, _P, _I]
-    lib.oscillink_window_spmv.argtypes = common + [_P]
-    lib.oscillink_window_spmv3.argtypes = common + strag + [_P]
-    for fn in (lib.oscillink_window_spmv, lib.oscillink_window_spmv3):
-        fn.restype = ctypes.c_int
-    lib.oscillink_window_error_string.argtypes = [_I]
-    lib.oscillink_window_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _library3f() -> ctypes.CDLL:
     lib = load_library("window_spmv3f")
-    # X, g, cs, n_win, idxl, wnl, K, strag_dst, strag_src, strag_w, strag_off, strag_cnt, s_max,
-    # out, pap, n_pad, d, W, R, tier, stream
-    lib.oscillink_window_spmv3f.argtypes = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                                            _P, _P, _LL, _I, _I, _I, _I, _P]
-    lib.oscillink_window_spmv3f.restype = ctypes.c_int
+    plan = [_I, _P, _P, _I]  # n_win, idxl, wnl, K (after X and cs)
+    strag = [_P, _P, _P, _P, _P, _I]  # strag_dst, strag_src, strag_w, strag_off, strag_cnt, s_max
+    tail = [_LL, _I, _I, _I, _I, _P]  # n_pad, d, W, R, tier, stream
+    lib.oscillink_window_spmv3f.argtypes = [_P, _P, _P] + plan + strag + [_P, _P] + tail
+    lib.oscillink_window_spmv3.argtypes = [_P, _P] + plan + strag + [_P] + tail
+    lib.oscillink_window_spmv.argtypes = [_P, _P] + plan + [_P] + tail
+    for fn in (lib.oscillink_window_spmv3f, lib.oscillink_window_spmv3, lib.oscillink_window_spmv):
+        fn.restype = ctypes.c_int
     lib.oscillink_window_spmv3f_error_string.argtypes = [_I]
     lib.oscillink_window_spmv3f_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_common(name: str, plan: WindowPlan, Xpad: torch.Tensor, precision: str,
-                  tensors: dict) -> None:
-    """Device, contiguity and dtype checks shared by the K2–K4 wrappers."""
+def _check(name: str, plan: WindowPlan, Xpad: torch.Tensor, W: int, R: int, precision: str,
+           s_max: Optional[int] = None, g: Optional[torch.Tensor] = None) -> None:
+    """Device, contiguity, dtype and shape checks of the K2–K4 wrappers: the
+    plan's window arrays, and its straggler arrays where ``s_max`` is given
+    (K3, K4)."""
     def fail(msg):
         raise ValueError(f"{name}: {msg}")
 
-    for key, t in {"Xpad": Xpad, "cs": plan.cs, **tensors}.items():
+    keys = ["cs", "idxl", "wnl"]
+    if s_max is not None:
+        keys += ["strag_dst", "strag_src", "strag_w", "strag_off", "strag_cnt"]
+    tensors = {"Xpad": Xpad, **{key: getattr(plan, key) for key in keys}}
+    if g is not None:
+        tensors["g"] = g
+    for key, t in tensors.items():
         if t.device.type != "cuda":
             fail(f"{key} must be a CUDA tensor, got {t.device}")
         if t.device != Xpad.device:
             fail(f"{key} is on {t.device}, Xpad on {Xpad.device}")
         if not t.is_contiguous():
             fail(f"{key} must be contiguous")
-    if precision not in _TIER_TERMS:
+    if precision not in PRECISION_TIERS:
         fail(f"unknown precision tier {precision!r}")
     if Xpad.dtype != torch.float32 or Xpad.dim() != 2:
         fail(f"Xpad must be a 2-D float32 tensor, got {Xpad.dtype} {tuple(Xpad.shape)}")
-    if plan.cs.dtype != torch.int32:
-        fail("plan.cs must be int32")
-
-
-def _check(name: str, plan: WindowPlan, oh: torch.Tensor, Xpad: torch.Tensor, W: int, R: int,
-           precision: str, **extra: Optional[torch.Tensor]) -> None:
-    def fail(msg):
-        raise ValueError(f"{name}: {msg}")
-
-    _check_common(name, plan, Xpad, precision, {"oh": oh, **extra})
-    n_pad = Xpad.shape[0]
-    n_win, b = plan.cs.shape
-    if R % 32 or not 32 <= R <= _MAX_R or W % _KC or W <= 0:
-        fail(f"geometry W={W}, R={R} unsupported (R a multiple of 32 up to {_MAX_R}, "
-             f"W a multiple of {_KC})")
-    if n_pad != b * R or n_pad % W:
-        fail(f"Xpad rows {n_pad} do not match the plan ({b} blocks of {R}, windows of {W})")
-    if oh.dtype not in (torch.float32, torch.bfloat16) or tuple(oh.shape) != (n_pad, n_win * W):
-        fail(f"oh must be [{n_pad}, {n_win * W}] f32 or bf16, got {oh.dtype} {tuple(oh.shape)}")
-    oh3 = extra.get("oh3")
-    if oh3 is not None:
-        s_max = oh3.shape[1]
-        if oh3.dtype != torch.bfloat16 or tuple(oh3.shape) != (n_pad, s_max) or s_max % _KC:
-            fail(f"oh3 must be [{n_pad}, s_max] bf16 with s_max a multiple of {_KC}")
-        for key in ("strag_off", "strag_cnt"):
-            t = extra[key]
-            if t.dtype != torch.int32 or tuple(t.shape) != (b,):
-                fail(f"{key} must be [{b}] int32")
-
-
-def _check3f(plan: WindowPlan, Xpad: torch.Tensor, g: torch.Tensor, W: int, R: int, s_max: int,
-             precision: str) -> None:
-    name = "window_spmv3f_cuda"
-
-    def fail(msg):
-        raise ValueError(f"{name}: {msg}")
-
-    _check_common(name, plan, Xpad, precision, {
-        "idxl": plan.idxl, "wnl": plan.wnl, "strag_dst": plan.strag_dst,
-        "strag_src": plan.strag_src, "strag_w": plan.strag_w, "strag_off": plan.strag_off,
-        "strag_cnt": plan.strag_cnt, "g": g,
-    })
     n_pad = Xpad.shape[0]
     n_win, b = plan.cs.shape
     k = plan.idxl.shape[2]
+    if plan.cs.dtype != torch.int32:
+        fail("plan.cs must be int32")
     if W <= 0 or R <= 0 or n_pad != b * R or n_pad % W:
         fail(f"Xpad rows {n_pad} do not match the plan ({b} blocks of {R}, windows of {W})")
     for key, dtype in (("idxl", torch.int32), ("wnl", torch.float32)):
         t = getattr(plan, key)
         if t.dtype != dtype or tuple(t.shape) != (n_win, n_pad, k):
             fail(f"{key} must be [{n_win}, {n_pad}, K] {dtype}")
-    if s_max < 0:
-        fail(f"s_max must be >= 0, got {s_max}")
-    s_len = plan.strag_w.shape[0]
-    for key, dtype, shape in (("strag_dst", torch.int32, (s_len,)),
-                              ("strag_src", torch.int32, (s_len,)),
-                              ("strag_w", torch.float32, (s_len,)),
-                              ("strag_off", torch.int32, (b,)), ("strag_cnt", torch.int32, (b,))):
-        t = getattr(plan, key)
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            fail(f"{key} must be {list(shape)} {dtype}")
-    if g.dtype != torch.float32 or tuple(g.shape) != (n_pad, 1):
+    if s_max is not None:
+        if s_max < 0:
+            fail(f"s_max must be >= 0, got {s_max}")
+        s_len = plan.strag_w.shape[0]
+        for key, dtype, shape in (("strag_dst", torch.int32, (s_len,)),
+                                  ("strag_src", torch.int32, (s_len,)),
+                                  ("strag_w", torch.float32, (s_len,)),
+                                  ("strag_off", torch.int32, (b,)),
+                                  ("strag_cnt", torch.int32, (b,))):
+            t = getattr(plan, key)
+            if t.dtype != dtype or tuple(t.shape) != shape:
+                fail(f"{key} must be {list(shape)} {dtype}")
+    if g is not None and (g.dtype != torch.float32 or tuple(g.shape) != (n_pad, 1)):
         fail(f"g must be [{n_pad}, 1] float32")
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        msg = _library().oscillink_window_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-
-
-def _common_args(plan, oh, Xpad, out, W, R, precision):
-    alo, blo = _TIER_TERMS[precision]
-    if oh.dtype == torch.bfloat16:
-        alo = 0  # a bf16-stored one-hot has no low half
-    n_pad, d = Xpad.shape
-    return [plan.cs.data_ptr(), plan.n_windows, oh.data_ptr(), int(oh.dtype == torch.bfloat16),
-            Xpad.data_ptr(), out.data_ptr(), n_pad, d, W, R, alo, blo]
-
-
-def window_spmv_cuda(plan: WindowPlan, oh: torch.Tensor, Xpad: torch.Tensor, W: int, R: int,
-                     precision: str) -> torch.Tensor:
-    """Launch K2 on Xpad's device and current stream; raises on bad inputs
-    or a refused launch, never falls back to the plain version."""
-    _check("window_spmv_cuda", plan, oh, Xpad, W, R, precision)
-    out = torch.empty_like(Xpad)
-    if Xpad.numel() == 0:
-        return out
+def _launch(name: str, Xpad: torch.Tensor, W: int, R: int, precision: str, *args) -> None:
+    """Call the library's entry ``oscillink_<name>`` with ``args`` and the
+    geometry, tier and current stream; raise on a refused launch."""
     lib = _library()
     with torch.cuda.device(Xpad.device):
         stream = torch.cuda.current_stream(Xpad.device).cuda_stream
-        rc = lib.oscillink_window_spmv(*_common_args(plan, oh, Xpad, out, W, R, precision), stream)
-    _raise_on(rc, "window_spmv")
+        rc = getattr(lib, f"oscillink_{name}")(*args, Xpad.shape[0], Xpad.shape[1], W, R,
+                                               PRECISION_TIERS.index(precision), stream)
+    if rc != 0:
+        msg = lib.oscillink_window_spmv3f_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _plan_args(plan: WindowPlan) -> list:
+    return [plan.cs.data_ptr(), plan.n_windows, plan.idxl.data_ptr(), plan.wnl.data_ptr(),
+            plan.idxl.shape[2]]
+
+
+def _strag_args(plan: WindowPlan, s_max: int) -> list:
+    return [plan.strag_dst.data_ptr(), plan.strag_src.data_ptr(), plan.strag_w.data_ptr(),
+            plan.strag_off.data_ptr(), plan.strag_cnt.data_ptr(), s_max]
+
+
+def window_spmv_cuda(plan: WindowPlan, Xpad: torch.Tensor, W: int, R: int,
+                     precision: str) -> torch.Tensor:
+    """Launch K2 (``csrc/window_spmv3f.cu``'s windows-only variant: the
+    plan's in-window slots, no one-hot) on Xpad's device and current
+    stream.  Raises on bad inputs and on a refused launch; never falls back
+    to the plain version."""
+    _check("window_spmv_cuda", plan, Xpad, W, R, precision)
+    out = torch.empty_like(Xpad)
+    if Xpad.numel() == 0:
+        return out
+    _launch("window_spmv", Xpad, W, R, precision, Xpad.data_ptr(), *_plan_args(plan),
+            out.data_ptr())
     window_spmv_cuda.launches += 1
     return out
 
 
-def _strag_args(plan, oh3, contrib):
-    return [oh3.data_ptr(), contrib.data_ptr(), int(contrib.dtype == torch.bfloat16),
-            plan.strag_off.data_ptr(), plan.strag_cnt.data_ptr(), oh3.shape[1]]
-
-
-def window_spmv3_cuda(plan: WindowPlan, oh: torch.Tensor, oh3: torch.Tensor, Xpad: torch.Tensor,
-                      W: int, R: int, s_max: int, precision: str) -> torch.Tensor:
-    """Launch K3 (windows + in-kernel straggler correction).  The
-    contribution buffer is gathered here, outside the kernel, as the JAX
-    package gathers it outside the Pallas kernel."""
-    contrib = _contrib(plan, Xpad, precision)
-    _check("window_spmv3_cuda", plan, oh, Xpad, W, R, precision, oh3=oh3, contrib=contrib,
-           strag_off=plan.strag_off, strag_cnt=plan.strag_cnt)
-    if oh3.shape[1] != s_max:
-        raise ValueError(f"window_spmv3_cuda: oh3 has {oh3.shape[1]} columns, s_max is {s_max}")
+def window_spmv3_cuda(plan: WindowPlan, Xpad: torch.Tensor, W: int, R: int, s_max: int,
+                      precision: str) -> torch.Tensor:
+    """Launch K3 (K4's kernel with g ≡ 1 and no partials: windows and each
+    row's stragglers, gathered from X in the kernel).  Raises on bad inputs
+    and on a refused launch; never falls back to the plain version."""
+    _check("window_spmv3_cuda", plan, Xpad, W, R, precision, s_max=s_max)
     out = torch.empty_like(Xpad)
     if Xpad.numel() == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(Xpad.device):
-        stream = torch.cuda.current_stream(Xpad.device).cuda_stream
-        rc = lib.oscillink_window_spmv3(
-            *_common_args(plan, oh, Xpad, out, W, R, precision),
-            *_strag_args(plan, oh3, contrib), stream,
-        )
-    _raise_on(rc, "window_spmv3")
+    _launch("window_spmv3", Xpad, W, R, precision, Xpad.data_ptr(), *_plan_args(plan),
+            *_strag_args(plan, s_max), out.data_ptr())
     window_spmv3_cuda.launches += 1
     return out
 
 
 def window_spmv3f_cuda(plan: WindowPlan, Xpad: torch.Tensor, g: torch.Tensor, W: int, R: int,
                        s_max: int, precision: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4 (``csrc/window_spmv3f.cu``: the fused operator in gather
-    form from the plan's in-window slots and straggler list, no one-hot)
-    and sum its per-block ⟨x, out⟩ column partials over blocks with
-    ``torch.sum``: no atomics, so the CG denominator is the same from run to
-    run.  Raises on bad inputs and on a refused launch (a geometry whose
-    staged windows do not fit a block's shared memory); never falls back to
-    the plain version."""
-    _check3f(plan, Xpad, g, W, R, s_max, precision)
+    """Launch K4 (the fused operator in gather form from the plan's
+    in-window slots and straggler list, no one-hot) and sum its per-block
+    ⟨x, out⟩ column partials over blocks with ``torch.sum``: no atomics, so
+    the CG denominator is the same from run to run.  Raises on bad inputs
+    and on a refused launch (a geometry whose staged windows do not fit a
+    block's shared memory); never falls back to the plain version."""
+    _check("window_spmv3f_cuda", plan, Xpad, W, R, precision, s_max=s_max, g=g)
     out = torch.empty_like(Xpad)
     partials = torch.empty((plan.n_blocks, Xpad.shape[1]), dtype=torch.float32,
                            device=Xpad.device)
     if Xpad.numel() == 0:
         return out, partials.sum(dim=0)
-    lib = _library3f()
-    with torch.cuda.device(Xpad.device):
-        stream = torch.cuda.current_stream(Xpad.device).cuda_stream
-        rc = lib.oscillink_window_spmv3f(
-            Xpad.data_ptr(), g.data_ptr(), plan.cs.data_ptr(), plan.n_windows,
-            plan.idxl.data_ptr(), plan.wnl.data_ptr(), plan.idxl.shape[2],
-            plan.strag_dst.data_ptr(), plan.strag_src.data_ptr(), plan.strag_w.data_ptr(),
-            plan.strag_off.data_ptr(), plan.strag_cnt.data_ptr(), s_max,
-            out.data_ptr(), partials.data_ptr(), Xpad.shape[0], Xpad.shape[1], W, R,
-            PRECISION_TIERS.index(precision), stream,
-        )
-    if rc != 0:
-        msg = lib.oscillink_window_spmv3f_error_string(rc).decode()
-        raise RuntimeError(f"window_spmv3f launch failed: CUDA error {rc} ({msg})")
+    _launch("window_spmv3f", Xpad, W, R, precision, Xpad.data_ptr(), g.data_ptr(),
+            *_plan_args(plan), *_strag_args(plan, s_max), out.data_ptr(), partials.data_ptr())
     window_spmv3f_cuda.launches += 1
     return out, torch.sum(partials, dim=0)
 
@@ -871,77 +838,77 @@ window_spmv3f_cuda.launches = 0
 # -- operator entry points -------------------------------------------------
 
 
-def _on(Xpad: torch.Tensor, cuda_fn, ref_fn):
-    if Xpad.device.type == "cuda":
-        return cuda_fn
-    if Xpad.device.type == "cpu":
-        return ref_fn
+def _on_card(Xpad: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU one (the
+    one-hot plain versions); raises on any other device."""
+    if Xpad.device.type in ("cuda", "cpu"):
+        return Xpad.device.type == "cuda"
     raise ValueError(f"windowed matvec: unsupported device {Xpad.device}")
 
 
-def _geometry(plan: WindowPlan, oh: OneHots, W, R, precision):
-    if W is None:
-        W = oh.main.shape[1] // plan.n_windows
+def _cpu_onehots(oh: Optional[OneHots]) -> OneHots:
+    if oh is None:
+        raise ValueError("windowed matvec on the CPU takes the one-hot plain versions: "
+                         "pass the plan's OneHots (build_onehot)")
+    return oh
+
+
+def _geometry(plan: WindowPlan, R: Optional[int], precision: Optional[str]):
     if R is None:
         R = plan.n_pad // plan.n_blocks
     if precision is None:
         precision = _env_precision()
-    return W, R, precision
+    return R, precision
 
 
-def _strag_epilogue(plan: WindowPlan, oh: OneHots, Xpad: torch.Tensor, R: int,
-                    precision: str) -> torch.Tensor:
-    """K2's straggler epilogue in plain PyTorch, the scatter the JAX package
-    leaves to XLA.  It is written as the per-block segment product with the
-    exact 0/1 one-hot (f32 contributions, bf16-rounded under dma16), not as
-    ``index_add_``: that uses atomics on CUDA and would make the sum order,
-    and so the result, vary from run to run."""
-    c = plan.strag_w[:, None] * Xpad.index_select(0, plan.strag_src.long())
-    if precision == "dma16":
-        c = _bf16(c)
-    b, s_max = plan.n_blocks, oh.strag.shape[1]
-    seg = plan.strag_off.long()[:, None] + torch.arange(s_max, device=Xpad.device)
-    corr = oh.strag.view(b, R, s_max).to(torch.float32) @ c[seg]
-    corr = torch.where((plan.strag_cnt > 0)[:, None, None], corr, 0.0)
-    return corr.reshape(Xpad.shape)
-
-
-def lap_matvec_windowed(plan: WindowPlan, oh: OneHots, Xpad: torch.Tensor, *,
-                        W: Optional[int] = None, R: Optional[int] = None,
+def lap_matvec_windowed(plan: WindowPlan, oh: Optional[OneHots], Xpad: torch.Tensor, *, W: int,
+                        s_max: int, R: Optional[int] = None,
                         precision: Optional[str] = None) -> torch.Tensor:
     """Normalized-Laplacian matvec on padded rows: ``X − Wn X``.
 
     ``Xpad`` has ``plan.n_pad`` rows (`pad_rows`); padded rows pass through
-    as identity.  D % 128 == 0 takes K3; any other D takes K2 and the
-    plain-PyTorch straggler epilogue.  The 128 is the TPU's lane width (the
-    Pallas kernel's straggler DMA needs 128-aligned lanes), not a limit of
-    this card's kernels, which take any D: the port keeps the split so that
-    every kernel has a path and the routing follows the reference."""
-    W, R, precision = _geometry(plan, oh, W, R, precision)
+    as identity.  ``W`` and ``s_max`` are the plan's window rows and
+    straggler window; R defaults to the plan's row block, the tier to
+    ``OSCILLINK_WINDOW_PRECISION``.  D % 128 == 0 takes K3; any other D
+    takes K2 and the straggler epilogue `_stragglers_gather`.  The 128 is
+    the TPU's lane width (the Pallas kernel's straggler DMA needs
+    128-aligned lanes), not a limit of this card's kernels, which take any
+    D: the port keeps the split so that every kernel has a path and the
+    routing follows the reference.  On the card the kernels read the plan
+    and ``oh`` may be None; on the CPU the one-hot plain versions need it."""
+    R, precision = _geometry(plan, R, precision)
+    card = _on_card(Xpad)
     if Xpad.shape[1] % 128 == 0:
-        fn = _on(Xpad, window_spmv3_cuda, window_spmv3_ref)
-        return fn(plan, oh.main, oh.strag, Xpad, W, R, oh.strag.shape[1], precision)
-    fn = _on(Xpad, window_spmv_cuda, window_spmv_ref)
-    return fn(plan, oh.main, Xpad, W, R, precision) - _strag_epilogue(plan, oh, Xpad, R, precision)
+        if card:
+            return window_spmv3_cuda(plan, Xpad, W, R, s_max, precision)
+        oh = _cpu_onehots(oh)
+        return window_spmv3_ref(plan, oh.main, oh.strag, Xpad, W, R, s_max, precision)
+    if card:
+        out = window_spmv_cuda(plan, Xpad, W, R, precision)
+    else:
+        out = window_spmv_ref(plan, _cpu_onehots(oh).main, Xpad, W, R, precision)
+    return _stragglers_gather(plan, Xpad, out, R, s_max, precision)
 
 
-def k_matvec_windowed(plan: WindowPlan, oh: OneHots, Xpad: torch.Tensor, g: torch.Tensor, *,
-                      W: Optional[int] = None, R: Optional[int] = None,
+def k_matvec_windowed(plan: WindowPlan, oh: Optional[OneHots], Xpad: torch.Tensor,
+                      g: torch.Tensor, *, W: int, s_max: int, R: Optional[int] = None,
                       precision: Optional[str] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused operator apply: ``(g ⊙ X − Wn X, per-column Σ_rows X ⊙ K(X))``.
 
     The caller folds the operator's full diagonal, divided by the
     off-diagonal scale s, into ``g`` ([n_pad, 1] f32): M X = s·K(X).  Padded
     rows add 0 to both outputs while Xpad's padding is zero.  D % 128 == 0
-    takes K4: on the card the gather-form kernel, which reads the plan and
-    no one-hot; on the CPU the one-hot plain version (the two agree to 2^-16
-    a product).  Any other D composes the same quantities from
-    `lap_matvec_windowed`: K(X) = (g − 1) ⊙ X + L_win X."""
-    W, R, precision = _geometry(plan, oh, W, R, precision)
-    s_max = oh.strag.shape[1]
+    takes K4: on the card the gather-form kernel; on the CPU the one-hot
+    plain version (the two agree to 2^-16 a product).  Any other D composes
+    the same quantities from `lap_matvec_windowed`: K(X) = (g − 1) ⊙ X +
+    L_win X."""
+    R, precision = _geometry(plan, R, precision)
     if Xpad.shape[1] % 128 == 0:
-        if _on(Xpad, True, False):
+        if _on_card(Xpad):
             return window_spmv3f_cuda(plan, Xpad, g, W, R, s_max, precision)
+        oh = _cpu_onehots(oh)
         return window_spmv3f_ref(plan, oh.main, oh.strag, Xpad, g, W, R, s_max, precision)
-    out = (g - 1.0) * Xpad + lap_matvec_windowed(plan, oh, Xpad, W=W, R=R, precision=precision)
+    lap = lap_matvec_windowed(plan, oh, Xpad, W=W, s_max=s_max, R=R, precision=precision)
+    out = (g - 1.0) * Xpad + lap
     return out, torch.sum(Xpad * out, dim=0)
+

@@ -7,11 +7,12 @@ itself off the TPU, `_window_spmv3` (K3) and `_window_spmv3f` (K4) run with
 bf16-rounded operands and sum the exact products in f32, so only the order
 of summation differs: outputs are held to 1e-5 relative to max|ref|, K4's
 column partials (summed over rows and blocks) to 1e-4, as
-`tests/test_fused_windowed.py` holds the JAX package's own.  K4's
-gather-form plain version (the arithmetic of ``csrc/window_spmv3f.cu``)
-differs from the one-hot form by about 2^-16 a product and is held to the
-same bars.  Plans and one-hots must be identical.  The CUDA kernels have no
-CPU mode: `chip_smoke.py` holds them against these plain versions on a card.
+`tests/test_fused_windowed.py` holds the JAX package's own.  The gather-form
+plain versions of K2, K3 and K4 (the arithmetic of the kernels in
+``csrc/window_spmv3f.cu``) differ from the one-hot forms by about 2^-16 a
+product and are held to the same bars.  Plans and one-hots must be
+identical.  The CUDA kernels have no CPU mode: `chip_smoke.py` holds them
+against these plain versions on a card.
 """
 
 from unittest import mock
@@ -260,6 +261,98 @@ def test_k4_gather_plain_matches_pallas_and_the_onehot_form(tier, geometry):
     assert _rel(out.numpy(), one.numpy()) < 1e-5 and _rel(pap.numpy(), pap_one.numpy()) < 1e-4
 
 
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_k2_k3_gather_plain_match_pallas_and_the_onehot_form(kernel, tier, geometry):
+    """K2's and K3's gather forms (K4's arithmetic without g and partials;
+    K2 also without stragglers) against the TPU kernels (interpret mode) and
+    the one-hot plain versions, in every tier and geometry of the K4 test."""
+    geo = dict(GEOMETRIES[geometry])
+    W, R = geo.get("W", 384), geo.get("R", 384)
+    pj, pt, oj, ot_, Xj, Xt, _, s_max = _kernel_case(**geo)
+    main_j, main_t = _main(oj, tier, True), _main(ot_, tier, False)
+    if kernel == "K2":
+        ref = ws._window_spmv(pj, main_j, Xj, W, R, tier)
+        one = tw.window_spmv_ref(pt, main_t, Xt, W, R, tier)
+        out = tw.window_spmv_gather_ref(pt, Xt, W, R, tier)
+    else:
+        with _interp():
+            ref = ws._window_spmv3(pj, main_j, oj.strag, Xj, W, R, s_max, tier)
+        one = tw.window_spmv3_ref(pt, main_t, ot_.strag, Xt, W, R, s_max, tier)
+        out = tw.window_spmv3_gather_ref(pt, Xt, W, R, s_max, tier)
+    assert _rel(out.numpy(), ref) < 1e-5
+    assert _rel(out.numpy(), one.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("tier", ["bf16x3", "dma16"])
+def test_straggler_epilogue_matches_the_jax_scatter(tier):
+    """K2's epilogue, each row's run of the sorted straggler list subtracted
+    in entry order, against the JAX package's XLA scatter
+    ``out.at[strag_dst].add(-contrib)`` on a plan whose rows repeat
+    destinations (dma16 rounds each weighted row to bf16 on both sides)."""
+    pj, pt, _, _, Xj, Xt, _, s_max = _kernel_case(1900, 40, seed=2)
+    live_dst = pt.strag_dst[pt.strag_w != 0.0]
+    assert bool((live_dst[1:] == live_dst[:-1]).any())
+    base = np.random.default_rng(7).standard_normal(tuple(Xt.shape)).astype(np.float32)
+    contrib = pj.strag_w[:, None] * jnp.take(Xj, pj.strag_src, axis=0)
+    if tier == "dma16":
+        contrib = contrib.astype(jnp.bfloat16).astype(jnp.float32)
+    ref = jnp.asarray(base).at[pj.strag_dst].add(-contrib, indices_are_sorted=True,
+                                                  unique_indices=False)
+    out = tw._stragglers_gather(pt, Xt, torch.from_numpy(base), 384, s_max, tier)
+    assert _rel(out.numpy(), ref) < 1e-6
+
+
+def _unreferenced_window_rows(plan, W, R, n):
+    """Real rows (< n) of elected windows that no live slot, no straggler
+    entry and no padding entry reads."""
+    n_pad = plan.n_pad
+    blk = torch.arange(n_pad) // R
+    read = torch.zeros(n_pad, dtype=torch.bool)
+    held = torch.zeros(n_pad, dtype=torch.bool)
+    for w in range(plan.n_windows):
+        cols = (plan.cs[w].long()[blk] * W)[:, None] + plan.idxl[w].long()
+        read[cols[plan.wnl[w] != 0.0]] = True
+        held[(plan.cs[w].long()[:, None] * W + torch.arange(W)).reshape(-1)] = True
+    read[plan.strag_src.long()] = True
+    rows = torch.nonzero(held & ~read)[:, 0]
+    return rows[rows < n]
+
+
+@pytest.mark.parametrize("value", ["nan", "inf"])
+def test_a_nonfinite_unreferenced_window_row_stays_out_of_the_gather_forms(value):
+    """Gather semantics, the kernels' behaviour on the card: a NaN or an
+    infinity in a window row that no row references reaches no output row
+    but its own in the gather forms of K2, K3 and K4.  The one-hot forms, as
+    the TPU kernels, spread it through 0·NaN to every row of each block
+    whose windows hold it."""
+    n, W, R = 1900, 384, 384
+    _, pt, _, ot_, _, Xt, g, s_max = _kernel_case(n, 64, seed=11)
+    r = int(_unreferenced_window_rows(pt, W, R, n)[0])
+    X = Xt.clone()
+    X[r] = float(value)
+    gt = torch.from_numpy(g)
+    gather = {
+        "K2": tw.window_spmv_gather_ref(pt, X, W, R, "bf16x3"),
+        "K3": tw.window_spmv3_gather_ref(pt, X, W, R, s_max, "bf16x3"),
+        "K4": tw.window_spmv3f_gather_ref(pt, X, gt, W, R, s_max, "bf16x3")[0],
+    }
+    one_hot = {
+        "K2": tw.window_spmv_ref(pt, ot_.main, X, W, R, "bf16x3"),
+        "K3": tw.window_spmv3_ref(pt, ot_.main, ot_.strag, X, W, R, s_max, "bf16x3"),
+        "K4": tw.window_spmv3f_ref(pt, ot_.main, ot_.strag, X, gt, W, R, s_max, "bf16x3")[0],
+    }
+    rows = torch.arange(pt.n_pad)
+    holds = (pt.cs == r // W).any(dim=0)[rows // R]  # the rows of blocks whose windows hold r
+    assert 0 < int(holds.sum()) < pt.n_pad
+    for key in gather:
+        bad = ~torch.isfinite(gather[key]).all(dim=1)
+        assert torch.equal(bad, rows == r), key
+        bad = ~torch.isfinite(one_hot[key]).all(dim=1)
+        assert torch.equal(bad, holds | (rows == r)), key
+
+
 def test_merged_weights_sum_repeated_columns_in_slot_order():
     idxl = torch.tensor([[3, 5, 3, 0, 3], [1, 1, 2, 7, 0]], dtype=torch.int32)
     wnl = torch.tensor([[0.5, 0.25, 2.0**-30, 0.0, 0.125], [0.0, 0.75, 0.5, 0.0, 0.0]])
@@ -314,7 +407,7 @@ def test_k_matvec_windowed_with_more_slots_than_a_warp_matches_pallas():
                                      jnp.asarray(g), precision="bf16x3")
     Xt, gt = tw.pad_rows(torch.from_numpy(X), pt.n_pad), torch.from_numpy(g)
     before = tw.window_spmv3f_cuda.launches
-    kt, pap_t = tw.k_matvec_windowed(pt, ot_, Xt, gt, precision="bf16x3")
+    kt, pap_t = tw.k_matvec_windowed(pt, ot_, Xt, gt, W=384, s_max=s_max, precision="bf16x3")
     assert tw.window_spmv3f_cuda.launches == before
     one, pap_one = tw.window_spmv3f_ref(pt, ot_.main, ot_.strag, Xt, gt, 384, 384, s_max,
                                         "bf16x3")
@@ -342,14 +435,14 @@ def test_windowed_operators_match_jax(monkeypatch, tier, d):
     package always composes K2 + its XLA scatter epilogue; the port routes
     D % 128 == 0 to K3/K4 as the reference does on its chip."""
     monkeypatch.setenv("OSCILLINK_WINDOW_PRECISION", tier)
-    pj, pt, oj, ot_, Xj, Xt, g, _ = _kernel_case(1900, d, seed=2)
+    pj, pt, oj, ot_, Xj, Xt, g, s_max = _kernel_case(1900, d, seed=2)
     oj = oj._replace(main=_main(oj, tier, True))
     ot_ = ot_._replace(main=_main(ot_, tier, False))
     lap_j = ws.lap_matvec_windowed(pj, oj, Xj)
-    lap_t = tw.lap_matvec_windowed(pt, ot_, Xt)
+    lap_t = tw.lap_matvec_windowed(pt, ot_, Xt, W=384, s_max=s_max)
     assert _rel(lap_t.numpy(), lap_j) < 1e-5
     kj, pap_j = ws.k_matvec_windowed(pj, oj, Xj, jnp.asarray(g))
-    kt, pap_t = tw.k_matvec_windowed(pt, ot_, Xt, torch.from_numpy(g))
+    kt, pap_t = tw.k_matvec_windowed(pt, ot_, Xt, torch.from_numpy(g), W=384, s_max=s_max)
     assert _rel(kt.numpy(), kj) < 1e-5
     assert _rel(pap_t.numpy(), pap_j) < 1e-4
 
@@ -361,34 +454,49 @@ def test_plain_versions_match_the_gather_matvec():
     n = 1900
     idx, wn = _far_jump(n, 6, seed=21)
     pt, _ = tw.build_window_plan(idx, wn, W=384, R=384, n_windows=3, device="cpu")
-    oh = tw.build_onehot(pt, 384, tw.plan_s_max(pt))
+    s_max = tw.plan_s_max(pt)
+    oh = tw.build_onehot(pt, 384, s_max)
     X = torch.from_numpy(np.random.default_rng(0).standard_normal((n, 128)).astype(np.float32))
     ref = lap_matvec_ref(torch.from_numpy(idx), torch.from_numpy(wn), X)
     for d in (128, 100):
-        out = tw.lap_matvec_windowed(pt, oh, tw.pad_rows(X[:, :d].contiguous(), pt.n_pad),
-                                     precision="bf16x3")
+        Xp = tw.pad_rows(X[:, :d].contiguous(), pt.n_pad)
+        out = tw.lap_matvec_windowed(pt, oh, Xp, W=384, s_max=s_max, precision="bf16x3")
         assert _rel(out[:n].numpy(), ref[:, :d].numpy()) < 1e-5
+        gather = tw.window_spmv3_gather_ref(pt, Xp, 384, 384, s_max, "bf16x3")
+        assert _rel(gather[:n].numpy(), ref[:, :d].numpy()) < 1e-5
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     pj, pt, oj, ot_, Xj, Xt, g, s_max = _kernel_case(1900, 128, seed=4)
     before = [f.launches for f in (tw.window_spmv_cuda, tw.window_spmv3_cuda, tw.window_spmv3f_cuda)]
     gt = torch.from_numpy(g)
-    out = tw.lap_matvec_windowed(pt, ot_, Xt, precision="bf16x3")
+    geo = dict(W=384, s_max=s_max, precision="bf16x3")
+    out = tw.lap_matvec_windowed(pt, ot_, Xt, **geo)
     assert torch.equal(out, tw.window_spmv3_ref(pt, ot_.main, ot_.strag, Xt, 384, 384, s_max, "bf16x3"))
-    k, pap = tw.k_matvec_windowed(pt, ot_, Xt, gt, precision="bf16x3")
+    X97 = Xt[:, :97].contiguous()  # D % 128 != 0: K2's route and the epilogue
+    out = tw.lap_matvec_windowed(pt, ot_, X97, **geo)
+    want = tw._stragglers_gather(pt, X97, tw.window_spmv_ref(pt, ot_.main, X97, 384, 384, "bf16x3"),
+                                 384, s_max, "bf16x3")
+    assert torch.equal(out, want)
+    k, pap = tw.k_matvec_windowed(pt, ot_, Xt, gt, **geo)
     k_ref, pap_ref = tw.window_spmv3f_ref(pt, ot_.main, ot_.strag, Xt, gt, 384, 384, s_max, "bf16x3")
     assert torch.equal(k, k_ref) and torch.equal(pap, pap_ref)
     after = [f.launches for f in (tw.window_spmv_cuda, tw.window_spmv3_cuda, tw.window_spmv3f_cuda)]
     assert after == before
+    # the CPU route's plain versions read the one-hots: without them it refuses
+    for fn, args in ((tw.lap_matvec_windowed, (pt, None, Xt)),
+                     (tw.lap_matvec_windowed, (pt, None, X97)),
+                     (tw.k_matvec_windowed, (pt, None, Xt, gt))):
+        with pytest.raises(ValueError, match="one-hot plain versions"):
+            fn(*args, **geo)
 
 
 def test_wrappers_refuse_cpu_tensors():
     _, pt, _, ot_, _, Xt, g, s_max = _kernel_case(1900, 64, seed=6)
     gt = torch.from_numpy(g)
     calls = (
-        (tw.window_spmv_cuda, (pt, ot_.main, Xt, 384, 384, "bf16x3")),
-        (tw.window_spmv3_cuda, (pt, ot_.main, ot_.strag, Xt, 384, 384, s_max, "bf16x3")),
+        (tw.window_spmv_cuda, (pt, Xt, 384, 384, "bf16x3")),
+        (tw.window_spmv3_cuda, (pt, Xt, 384, 384, s_max, "bf16x3")),
         (tw.window_spmv3f_cuda, (pt, Xt, gt, 384, 384, s_max, "bf16x3")),
     )
     for fn, args in calls:
@@ -398,31 +506,34 @@ def test_wrappers_refuse_cpu_tensors():
         assert fn.launches == before
 
 
-SOURCES = {
-    # source: (the Pallas kernels it names, its entry points, entry points it must not hold)
-    "window_spmv": (("oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel (K2",
-                     ":_matmul_kernel3 (K3"),
-                    ("oscillink_window_spmv(", "oscillink_window_spmv3(",
-                     "oscillink_window_error_string("),
-                    ("oscillink_window_spmv3f(", "kFused")),
-    "window_spmv3f": (("oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel3f (K4",),
-                      ("oscillink_window_spmv3f(", "oscillink_window_spmv3f_error_string("),
-                      ("wmma::", "oh3", "const void* contrib")),
+# the entry points of csrc/window_spmv3f.cu, one compile-time variant of its
+# kernel each, and the Pallas kernel each replaces
+ENTRY_POINTS = {
+    "window_spmv": "oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel (K2",
+    "window_spmv3": "oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel3 (K3",
+    "window_spmv3f": "oscillink_tpu/ops/pallas/window_spmv.py:_matmul_kernel3f (K4",
 }
 
 
-@pytest.mark.parametrize("name", sorted(SOURCES))
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_window_source_is_content_addressed_and_names_what_it_replaces(name):
-    names, entries, absent = SOURCES[name]
-    src, lib = kbuild._target(name)
-    assert src == kbuild.CSRC_DIR / f"{name}.cu" and src.exists()
-    assert lib.parent == kbuild.BUILD_DIR and lib.name.startswith(f"{name}-")
+    """One source carries K2, K3 and K4: it names each Pallas kernel and
+    exports each entry point, and it reads no one-hot, takes no buffer of
+    weighted straggler rows and uses no atomics; no source of the port
+    holds a WMMA product."""
+    src, lib = kbuild._target("window_spmv3f")
+    assert src == kbuild.CSRC_DIR / "window_spmv3f.cu" and src.exists()
+    assert lib.parent == kbuild.BUILD_DIR and lib.name.startswith("window_spmv3f-")
     text = src.read_text()
-    for needle in names + entries:
-        assert needle in text
-    for needle in absent:
+    assert ENTRY_POINTS[name] in text
+    assert f"int oscillink_{name}(" in text
+    assert "oscillink_window_spmv3f_error_string(" in text
+    for needle in ("wmma::", "oh3", "contrib"):
         assert needle not in text
     assert "atomic" not in text.replace("no atomics", "").replace("without atomics", "")
+    assert not (kbuild.CSRC_DIR / "window_spmv.cu").exists()
+    for other in kbuild.CSRC_DIR.glob("*.cu"):
+        assert "wmma::" not in other.read_text(), other.name
 
 
 def _jax_plan_arrays(pj):

@@ -25,6 +25,7 @@ from oscillink_tpu.models import coherence as jcoh  # noqa: E402
 from oscillink_tpu_torch import interop  # noqa: E402
 from oscillink_tpu_torch.core.lattice import _locality_order  # noqa: E402
 from oscillink_tpu_torch.models import coherence as tcoh  # noqa: E402
+from oscillink_tpu_torch.ops.kernels import window_spmv as tw  # noqa: E402
 
 LAMS = (1.0, 0.5, 4.0, 0.0)
 
@@ -103,8 +104,8 @@ def _carried_ctx(lj):
     )
     oh = interop.onehots_from_numpy(np.asarray(cj.oh.main), np.asarray(cj.oh.strag), device="cpu")
     return tcoh.WindowCtx(
-        plan=plan, oh=oh, order=torch.from_numpy(np.asarray(cj.order)),
-        inv_order=torch.from_numpy(np.asarray(cj.inv_order)),
+        plan=plan, order=torch.from_numpy(np.asarray(cj.order)),
+        inv_order=torch.from_numpy(np.asarray(cj.inv_order)), W=384, s_max=s_max, oh=oh,
     )
 
 
@@ -140,6 +141,30 @@ def test_windowed_solves_on_a_jax_ctx_match_jax(monkeypatch, d, fused):
         assert itt == int(itj)
         np.testing.assert_allclose(Ut.numpy(), np.asarray(Uj), rtol=1e-5,
                                    atol=1e-5 * np.abs(Uj).max())
+
+
+def test_cpu_lattice_builds_its_onehot_and_the_ctx_carries_W_and_s_max(monkeypatch):
+    """The context carries the geometry the kernels take (W, s_max); the
+    one-hots are built on the CPU only, for its one-hot plain versions, and
+    without them the CPU route refuses to solve."""
+    monkeypatch.setenv("OSCILLINK_WINDOWED_MATVEC", "1")
+    Y = _clustered(1400, 64, seed=0)
+    lt = pt.Oscillink(Y, kneighbors=6, device="cpu")
+    events = []
+    lt.set_logger(lambda ev, p: events.append((ev, p)))
+    lt._maybe_build_window_ctx()
+    ctx = lt._window_ctx
+    assert events[-1][0] == "window_ctx" and ctx.s_max == events[-1][1]["s_max"] == 384
+    assert ctx.W == 384 and ctx.oh is not None
+    want = tw.build_onehot(ctx.plan, ctx.W, ctx.s_max)
+    assert torch.equal(ctx.oh.main, want.main) and torch.equal(ctx.oh.strag, want.strag)
+    assert ctx.oh.strag.shape == (ctx.plan.n_pad, ctx.s_max)
+    lam = interop.energy_from_numpy(*LAMS, device="cpu")
+    ty, psi = torch.from_numpy(Y), torch.from_numpy(_psi(Y))
+    B = torch.ones(Y.shape[0])
+    for solve in (tcoh.solve_stationary_windowed, tcoh.solve_stationary_windowed_fused):
+        with pytest.raises(ValueError, match="one-hot plain versions"):
+            solve(ctx._replace(oh=None), ty, psi, B, lam, max_iters=2)
 
 
 def test_chunked_windowed_solves_are_not_ported():
@@ -230,7 +255,7 @@ def test_low_coverage_windowed_lattice_matches_jax(monkeypatch, fused):
     straggler correction of K4 (fused) and K3 (unfused) at the lattice."""
     lj, lt = _windowed_pair(monkeypatch, 3000, 128, 0, fused=fused, n_centers=64, noise=1.0)
     ct = lt._window_ctx
-    assert lt._window_coverage < 0.85 and ct.oh.strag.shape[1] == 768
+    assert lt._window_coverage < 0.85 and ct.oh.strag.shape[1] == ct.s_max == 768
     assert int(torch.count_nonzero(ct.plan.strag_cnt)) >= ct.plan.n_blocks - 1
     _assert_lattices_agree(lj, lt, dict(max_iters=16, tol=1e-4))
 
