@@ -5,7 +5,9 @@
 Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2, K3 and K4
 (``csrc/window_spmv3f.cu``, three variants of one gather kernel) and K5
 (``csrc/bucket_gather.cu``) from the checkout, one ``nvcc`` per source, all
-started together, and holds each against its plain PyTorch version (K2-K4
+started together, and holds each against its plain PyTorch version (K1
+also bit-equal from launch to launch and across forced column-slab widths,
+and its slab widths swept and timed in turns at the corpus shape; K2-K4
 against the one-hot form and their own gather forms, and bit-equal from
 launch to launch; on a NaN and an infinity in window rows no row
 references, to the gather forms' semantics).  Then it drives the paths
@@ -37,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -96,6 +99,11 @@ WIN_512 = dict(n=4099, d=128, k=8, W=512, R=256, n_win=2)
 WIN_K40 = dict(n=4099, d=97, k=40)
 STRAGGLERS = dict(n=16384, d=768, k=8)
 NARROW = dict(n=8192, d=97, k=8)
+# K1's slab widths swept at the corpus shape, beside D (the whole-row walk)
+SLAB_SWEEP = (16, 32, 64)
+# forced slab widths held to the plan's bits at the small K1 shapes: 1-32
+# lanes a row, widths that leave a ragged last slab, odd widths on float4 rows
+SLAB_CHECK = (1, 2, 3, 4, 5, 8, 12, 16, 20, 32, 33, 64, 100)
 # K5: the probe's check shape, and D = 97 (the scalar path) with e_pad = ETILE
 K5_SHAPES = (("check", 2, 128, 2 * bg.ETILE), ("ragged", 3, 97, bg.ETILE))
 PROBE_D = 768  # the probe's full width; its 31 buckets are probe_tensors' default
@@ -250,20 +258,106 @@ def medians(passes: list[dict]) -> dict:
 
 def kernel_vs_plain(shape: dict, gen: torch.Generator) -> dict:
     """Build a real graph with the port at ``shape``, run K1 and its plain
-    version on the same inputs, and hold them together."""
+    version on the same inputs, and hold them together; a second launch must
+    give the same bits."""
     dev = torch.device("cuda")
     n, d, k = shape["n"], shape["d"], shape["k"]
     Y = torch.randn(n, d, generator=gen, device=dev)
     g = build_graph(Y, k)
     X = torch.randn(n, d, generator=gen, device=dev)
-    out = lap_matvec(g, X)
+    out, again = lap_matvec(g, X), lap_matvec(g, X)
     ref = spmv.lap_matvec_ref(g.idx, g.wn, X)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     check(bool(torch.isfinite(out).all()), f"K1 output not finite at {shape}")
     check(torch.allclose(out, ref, rtol=TOL, atol=TOL), f"K1 != plain at {shape}: {err}")
-    emit("kernel_vs_plain", **shape, max_abs_err=err, tol=TOL)
+    check(torch.equal(out, again), f"K1 differs from launch to launch at {shape}")
+    # below the corpus size, forced slab widths (every lane count, ragged last
+    # slabs, scalar slabs on a float4 row) must give the plan's bits
+    widths = [w for w in SLAB_CHECK if w < d] if n * d < 10_000_000 else []
+    for w in widths:
+        check(torch.equal(spmv.lap_matvec_cuda(g.idx, g.wn, X, slab_cols=w), out),
+              f"K1 at slab_cols={w} differs from the plan's width at {shape}")
+    emit("kernel_vs_plain", **shape, slab_cols=k1_slab_cols(n, d, k), max_abs_err=err, tol=TOL,
+         bit_equal_repeat=True, bit_equal_slab_cols=widths)
     return {"g": g, "X": X, "err": err}
+
+
+def k1_slab_cols(n: int, d: int, k: int) -> int:
+    """K1's slab width on this card at [n, d] with k slots (the main path's)."""
+    return spmv.slab_plan(n, d, k, spmv.device_l2_bytes(0))
+
+
+def turns_ms(calls: dict, reps: int) -> dict:
+    """Each callable timed by `cuda_ms` in turns, forward then backward
+    (a, b, ..., b, a); the two readings of each, in that order."""
+    order = list(calls) + list(reversed(calls))
+    out = {key: [] for key in calls}
+    for key in order:
+        out[key].append(cuda_ms(calls[key], reps))
+    return out
+
+
+def k1_slab_sweep(shape: dict, case: dict) -> dict:
+    """K1 at ``shape`` with each slab width of SLAB_SWEEP and the plan's, the
+    widths timed in turns on this card; each output must equal the plan's
+    bit for bit (slabbing changes no element's arithmetic).  S = D is the
+    whole-row walk of the kernel's first design.  Beside them, the same walk
+    with one slot a row that reads the row itself: what reading X and
+    writing out in slabs costs without the gathers."""
+    g, X = case["g"], case["X"]
+    n, d, k = shape["n"], shape["d"], shape["k"]
+    plan = k1_slab_cols(n, d, k)
+    widths = sorted({*(w for w in SLAB_SWEEP if w < d), d, plan})
+    ref = spmv.lap_matvec_cuda(g.idx, g.wn, X)
+    for w in widths:
+        out = spmv.lap_matvec_cuda(g.idx, g.wn, X, slab_cols=w)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"K1 at slab_cols={w} != the plan's ({plan}) at {shape}")
+        del out
+    del ref
+    times = turns_ms({w: (lambda w=w: spmv.lap_matvec_cuda(g.idx, g.wn, X, slab_cols=w))
+                      for w in widths}, 20)
+    # the access pattern's own cost: one slot a row reading the row itself
+    # (no gather traffic), at the plan's width and at S = D
+    own = torch.arange(n, dtype=torch.int32, device=X.device)[:, None].contiguous()
+    zero = torch.zeros(n, 1, device=X.device)
+    stream = turns_ms({w: (lambda w=w: spmv.lap_matvec_cuda(own, zero, X, slab_cols=w))
+                       for w in (plan, d)}, 20)
+    row = {"plan_slab_cols": plan, "l2_bytes": spmv.device_l2_bytes(0),
+           "l2_budget_bytes": spmv.l2_budget(spmv.device_l2_bytes(0)),
+           "ms": {str(w): statistics.mean(t) for w, t in times.items()},
+           "turns_ms": {str(w): t for w, t in times.items()}, "bit_equal_to_plan": True,
+           "stream_only_ms": {str(w): statistics.mean(t) for w, t in stream.items()}}
+    emit("k1_slab_sweep", **shape, **row)
+    return row
+
+
+def k1_ptxas(report: dict) -> dict:
+    """K1's entries of a `ptxas_report`, keyed by vector type and lanes a row."""
+    out = {}
+    for key, val in report.items():
+        m = re.search(r"spmv_gather_kernelI(6float4|f)Li(\d+)E", key)
+        if m:
+            out[f"{'float4' if m.group(1) == '6float4' else 'float'},G={m.group(2)}"] = val
+    return out
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, keyed by its mangled name."""
+    out: dict = {}
+    name = None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def csr_of(idx: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
@@ -526,7 +620,8 @@ def window_bound(case: dict, name: str) -> dict:
 def window_timing(case: dict) -> dict:
     """K2-K4 at the default tier (bf16x3) with CUDA events, beside their
     one-hot and gather-form plain versions, their bounds, torch.sparse.mm of
-    the same operator as a CSR matrix, and K1 on the same graph."""
+    the same operator as a CSR matrix, and K1 on the same graph (at its
+    plan's slab width and at S = D, in turns)."""
     n = case["info"]["n"]
     X = case["X"]
     A = csr_of(case["idx"], case["wn"])
@@ -538,7 +633,18 @@ def window_timing(case: dict) -> dict:
     check(lib_err <= 1e-4 * float(lib_out.abs().max()),
           f"library yardstick disagrees with K3: {lib_err}")
     library_ms = cuda_ms(lambda: torch.sparse.mm(A, X), 20)
-    k1_ms = cuda_ms(lambda: spmv.lap_matvec_cuda(case["idx"], case["wn"], X), 20)
+    # K1 on the same graph at its plan's slab width and at S = D (the
+    # whole-row walk), in turns; the two must give the same bits
+    d = X.shape[1]
+    k1_full = spmv.lap_matvec_cuda(case["idx"], case["wn"], X, slab_cols=d)
+    torch.cuda.synchronize()
+    check(torch.equal(k1_out, k1_full), "K1 on the bench graph: the plan's slabs != S = D")
+    del k1_full
+    k1_turns = turns_ms({
+        "plan": lambda: spmv.lap_matvec_cuda(case["idx"], case["wn"], X),
+        "full_width": lambda: spmv.lap_matvec_cuda(case["idx"], case["wn"], X, slab_cols=d),
+    }, 20)
+    k1_ms = statistics.mean(k1_turns["plan"])
     k1_err = float((k1_out - k3_out).abs().max())
     rows = {}
     for name, (kern, plain, gather) in window_calls(case, "bf16x3").items():
@@ -548,8 +654,10 @@ def window_timing(case: dict) -> dict:
             "library_ms": library_ms,
         }
     emit("window_timing", **case["info"], tier="bf16x3", k1_same_graph_ms=k1_ms,
+         k1_slab_cols=k1_slab_cols(n, d, case["info"]["k"]), k1_turns_ms=k1_turns,
          k1_vs_k3_max_abs=k1_err, library_vs_k3_max_abs=lib_err, nnz=case["nnz"], **rows)
-    return {"rows": rows, "k1_ms": k1_ms}
+    return {"rows": rows, "k1_ms": k1_ms,
+            "k1_full_width_ms": statistics.mean(k1_turns["full_width"])}
 
 
 def locality_corpus(n: int, d: int, clusters: int = 2048, seed: int = 0):
@@ -863,8 +971,7 @@ def main() -> int:
         log = kbuild._target(name)[1].with_suffix(".log")
         libs[name] = {
             "library": log.with_suffix(".so").name,
-            "ptxas": [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln] if log.exists() else [],
+            "ptxas": ptxas_report(log.read_text()) if log.exists() else {},
         }
         kbuild.load_library(name)
     emit("build", seconds=build_s, **libs)
@@ -962,9 +1069,11 @@ def main() -> int:
     check(np.isfinite(rec["deltaH_total"]) and rec["deltaH_total"] >= 0, "deltaH invalid")
     check(len(bundle) == 8 and len({b["id"] for b in bundle}) == 8, "bundle ids invalid")
 
-    # 7. K1 timing at the main path's shapes
+    # 7. K1 timing at the main path's shapes, then its slab widths swept at
+    # the corpus shape
     rows = [time_kernel(HEADLINE, cases["headline"]), time_kernel(CORPUS, cases["corpus"])]
     main_row = rows[1]
+    sweep = k1_slab_sweep(CORPUS, cases["corpus"])
     k1_err = max(c["err"] for c in cases.values())
     del cases
     torch.cuda.empty_cache()
@@ -1009,6 +1118,13 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": "N=131072 D=768 K=8",
+        "slab_cols": sweep["plan_slab_cols"],
+        "l2_budget_bytes": sweep["l2_budget_bytes"],
+        "slab_sweep_ms": sweep["ms"],
+        "slab_stream_only_ms": sweep["stream_only_ms"],
+        "bench_graph_ms": win_timing["k1_ms"],
+        "bench_graph_full_width_ms": win_timing["k1_full_width_ms"],
+        "ptxas": k1_ptxas(libs["spmv"]["ptxas"]),
         "launches_per_settle": settle_launches,
         "gather_ceiling_ms": main_row["gather_ceiling_ms"],
         "per_shape": rows,

@@ -6,10 +6,12 @@ the kernel and how the design answers it).  Beside it:
 
 * ``lap_matvec_ref`` — the plain PyTorch version, the same K-ordered
   arithmetic.  The CPU path and the card-side checks use it.
+* ``slab_plan`` — the kernel's column-slab width: the widest slab of X that
+  fits, with idx and wn, in half the card's L2 (all of D when X fits).
 * ``lap_matvec_cuda`` — the wrapper: checks its inputs, allocates the
-  output, launches on the current stream and raises if the launch failed.
-  ``launches`` counts its kernel launches, so a run can show that its main
-  path went through the kernel.
+  output, launches on the current stream with the plan's slab width and
+  raises if the launch failed.  ``launches`` counts its kernel launches, so
+  a run can show that its main path went through the kernel.
 
 The wrapper does not bound-check ``idx`` (that would cost a reduction and a
 host sync per call): `build_graph` produces ids in ``[0, N)``, and
@@ -25,7 +27,8 @@ import torch
 
 from .build import load_library
 
-__all__ = ["lap_matvec_cuda", "lap_matvec_ref", "launches"]
+__all__ = ["device_l2_bytes", "l2_budget", "lap_matvec_cuda", "lap_matvec_ref", "launches",
+           "slab_plan"]
 
 launches = 0
 """Kernel launches made by `lap_matvec_cuda` since the count was last reset."""
@@ -37,6 +40,32 @@ def lap_matvec_ref(idx: torch.Tensor, wn: torch.Tensor, X: torch.Tensor) -> torc
     for a in range(idx.shape[1]):
         acc = acc - wn[:, a, None] * X.index_select(0, idx[:, a])
     return acc
+
+
+def l2_budget(l2_bytes: int) -> int:
+    """The bytes a slab and its index data may hold: half the L2.  The H100's
+    50 MB L2 is two partitions, and the output's stores pass through it too."""
+    return l2_bytes // 2
+
+
+def slab_plan(n: int, d: int, k: int, l2_bytes: int) -> int:
+    """Columns per slab for K1 on an [N, D] X with K slots a row, on a card
+    with ``l2_bytes`` of L2: D when X (N*D*4 bytes) and idx plus wn (N*K*8)
+    fit `l2_budget`, else the widest slab whose N*S*4 bytes fit beside idx
+    and wn, a multiple of 4 when D is (the kernel's float4 path), never
+    below 4 (1 when D % 4 != 0) nor above D."""
+    budget = l2_budget(l2_bytes)
+    if n * d * 4 + n * k * 8 <= budget:
+        return d
+    step = 4 if d % 4 == 0 else 1
+    cols = (budget - n * k * 8) // (n * 4) // step * step
+    return min(d, max(step, cols))
+
+
+@functools.cache
+def device_l2_bytes(index: int) -> int:
+    """The L2 size of CUDA device ``index``, as CUDA reports it."""
+    return torch.cuda.get_device_properties(index).L2_cache_size
 
 
 def _check(idx: torch.Tensor, wn: torch.Tensor, X: torch.Tensor) -> None:
@@ -67,7 +96,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("spmv")
     fn = lib.oscillink_spmv_gather
     fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.oscillink_cuda_error_string.argtypes = [ctypes.c_int]
@@ -75,21 +104,30 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def lap_matvec_cuda(idx: torch.Tensor, wn: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on X's device and current stream.  Raises on bad inputs or a
-    refused launch; never falls back to the plain version."""
+def lap_matvec_cuda(
+    idx: torch.Tensor, wn: torch.Tensor, X: torch.Tensor, slab_cols: int | None = None
+) -> torch.Tensor:
+    """Launch K1 on X's device and current stream, ``slab_cols`` columns a
+    slab (`slab_plan`'s width for this card unless given; the result does
+    not depend on it).  Raises on bad inputs or a refused launch; never
+    falls back to the plain version."""
     global launches
     _check(idx, wn, X)
+    n, k = idx.shape
+    d = X.shape[1]
+    if slab_cols is None:
+        slab_cols = slab_plan(n, d, k, device_l2_bytes(X.device.index))
+    elif not 1 <= slab_cols <= d:
+        raise ValueError(f"lap_matvec_cuda: slab_cols must lie in [1, {d}], got {slab_cols}")
     out = torch.empty_like(X)
     if X.numel() == 0:
         return out
     lib = _library()
-    n, k = idx.shape
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = lib.oscillink_spmv_gather(
             idx.data_ptr(), wn.data_ptr(), X.data_ptr(), out.data_ptr(),
-            n, k, X.shape[1], stream,
+            n, k, d, slab_cols, stream,
         )
     if rc != 0:
         msg = lib.oscillink_cuda_error_string(rc).decode()

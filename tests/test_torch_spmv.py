@@ -3,7 +3,10 @@
 On the CPU: the plain version `lap_matvec_ref` is held against the TPU
 kernel itself, `lap_matvec_pallas` run in interpret mode as the JAX
 package's own tests run it, at rtol/atol 1e-5 (the same K order; the gap is
-rounding only), ragged N included.  The CUDA kernel itself has no CPU mode:
+rounding only), ragged N included.  The kernel's column-slab plan
+(`slab_plan`) is pure Python and is checked here: its slabs cover the
+columns once, and the plain version taken slab by slab equals the
+whole-width call bit for bit.  The CUDA kernel itself has no CPU mode:
 `chip_smoke.py` holds it against the plain version on a card.
 """
 
@@ -104,3 +107,78 @@ def test_interop_rejects_out_of_range_ids():
     w = np.ones((3, 1), np.float32)
     with pytest.raises(ValueError, match=r"\[0, N\)"):
         interop.graph_from_numpy(idx, w, w, np.ones(3, np.float32), device="cpu")
+
+
+H100_L2 = 50 * 2**20  # torch.cuda.get_device_properties(...).L2_cache_size on an H100
+
+
+def _slabs(d, width):
+    return [(c0, min(c0 + width, d)) for c0 in range(0, d, width)]
+
+
+@pytest.mark.parametrize(
+    "n,d,k,l2",
+    [
+        (131072, 768, 8, H100_L2),  # the corpus: 24 slabs of 32
+        (5000, 128, 6, H100_L2),  # the headline: X fits, one slab
+        (131072, 97, 8, H100_L2),  # D % 4 != 0: the scalar path
+        (131072, 130, 8, H100_L2),
+        (4099, 3, 5, 4099 * 3 * 4 + 4099 * 5 * 8),  # D = 3 past a forced budget
+        (4099, 3, 5, 2 * (4099 * 3 * 4 + 4099 * 5 * 8)),  # D = 3 just fitting
+        (1000, 768, 1, 2 * 2**20),  # K = 1, forced small budget
+        (1000, 768, 40, 2 * 2**20),  # K = 40: idx and wn take most of it
+        (1000, 768, 40, 0),  # nothing fits: the narrowest slab
+        (1000, 97, 40, 0),
+        (262144, 768, 8, H100_L2),
+    ],
+)
+def test_slab_plan_covers_the_columns_once_and_fits_the_budget(n, d, k, l2):
+    width = spmv.slab_plan(n, d, k, l2)
+    budget = spmv.l2_budget(l2)
+    assert 1 <= width <= d
+    cols = [c for c0, c1 in _slabs(d, width) for c in range(c0, c1)]
+    assert cols == list(range(d))
+    if d % 4 == 0:
+        assert width % 4 == 0 and width >= 4
+    if n * d * 4 + n * k * 8 <= budget:
+        assert width == d
+    else:
+        narrowest = 4 if d % 4 == 0 else 1
+        assert width < d
+        assert width == narrowest or n * width * 4 + n * k * 8 <= budget
+        # the widest such slab: one more step would not fit
+        assert n * (width + narrowest) * 4 + n * k * 8 > budget
+
+
+def test_slab_plan_at_the_h100_shapes():
+    assert spmv.slab_plan(131072, 768, 8, H100_L2) == 32
+    assert spmv.slab_plan(5000, 128, 6, H100_L2) == 128
+    assert spmv.l2_budget(H100_L2) == 25 * 2**20
+
+
+@pytest.mark.parametrize("d,k", [(768, 8), (97, 8), (130, 1), (3, 40)])
+def test_slab_width_shrinks_as_n_grows_and_is_never_zero(d, k):
+    widths = [spmv.slab_plan(n, d, k, H100_L2) for n in (1, 1000, 8192, 65536, 131072, 1 << 20)]
+    assert all(w >= 1 for w in widths)
+    assert widths == sorted(widths, reverse=True)
+    assert widths[0] == d
+
+
+@pytest.mark.parametrize(
+    "n,d,k,l2",
+    [
+        (300, 64, 6, 2 * (300 * 16 * 4 + 300 * 6 * 8)),  # 4 slabs of 16
+        (4099, 97, 5, 2 * (4099 * 10 * 4 + 4099 * 5 * 8)),  # 10 columns, ragged last slab
+        (333, 130, 1, 0),  # D % 4 != 0 and nothing fits: slabs of one column
+        (1000, 64, 40, 0),  # K past a warp's lanes, narrowest float4 slab
+        (200, 48, 3, H100_L2),  # fits: one slab
+    ],
+)
+def test_plain_version_slab_by_slab_equals_the_whole_width(n, d, k, l2):
+    _, gt, X = _shared(n, d, k, seed=d)
+    Xt = torch.from_numpy(X)
+    whole = spmv.lap_matvec_ref(gt.idx, gt.wn, Xt)
+    width = spmv.slab_plan(n, d, k, l2)
+    parts = [spmv.lap_matvec_ref(gt.idx, gt.wn, Xt[:, c0:c1]) for c0, c1 in _slabs(d, width)]
+    assert len(parts) == -(-d // width)
+    assert torch.equal(torch.cat(parts, dim=1), whole)
