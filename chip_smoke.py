@@ -22,7 +22,17 @@ through the public entry points:
   straggler epilogue, each held to the port's CPU path; the card's window
   contexts must hold no one-hot;
 * the bucket-shuffle probe (K5, ``oscillink_tpu_torch.benchmarks.
-  probe_bucket_gather``) at its full size, 126976 x 768 with 1015808 edges.
+  probe_bucket_gather``) at its full size, 126976 x 768 with 1015808 edges;
+* the multi-query serving paths, all through K1 (held to its plain version
+  at their widths first: D = 1, 16, 3, the ragged union graph and Q·D =
+  6144): the batched lattice (``solve_Ustar_batch``, ``bundle_batch``)
+  against the port's CPU path; the /v1/bundle batch path at the corpus
+  (``diffusion_gates_batch``, ``bundle_batch`` for 8 queries) against the 8
+  single solves; standalone diffusion gates (dense direct and CG) and the
+  corpus lattice's ``diffusion_gates`` against the CPU; ``bundle_ragged``
+  at the /v1/bundle/ragged shape against each corpus served alone; and the
+  one-shot light receipt against the lattice's.  Each solve's K1 launches
+  must equal 1 + its slowest lane's iterations.
 
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
@@ -49,9 +59,13 @@ import warnings
 import numpy as np
 import torch
 
-from oscillink_tpu_torch import Oscillink
+from oscillink_tpu_torch import Oscillink, compute_diffusion_gates
 from oscillink_tpu_torch.benchmarks import probe_bucket_gather as probe
 from oscillink_tpu_torch.core.lattice import _locality_order
+from oscillink_tpu_torch.models import ragged as tragged
+from oscillink_tpu_torch.models.batched import union_graph
+from oscillink_tpu_torch.models.oneshot import settle_receipt_light
+from oscillink_tpu_torch.preprocess.diffusion import diffusion_sources, screened_solve
 from oscillink_tpu_torch.ops.graph import build_graph, lap_matvec
 from oscillink_tpu_torch.ops.kernels import bucket_gather as bg
 from oscillink_tpu_torch.ops.kernels import build as kbuild
@@ -107,6 +121,17 @@ SLAB_CHECK = (1, 2, 3, 4, 5, 8, 12, 16, 20, 32, 33, 64, 100)
 # K5: the probe's check shape, and D = 97 (the scalar path) with e_pad = ETILE
 K5_SHAPES = (("check", 2, 128, 2 * bg.ETILE), ("ragged", 3, 97, bg.ETILE))
 PROBE_D = 768  # the probe's full width; its 31 buckets are probe_tensors' default
+# the multi-query serving paths: the batched lattice against the CPU, the
+# /v1/bundle batch path at the corpus tier (Q queries), the standalone
+# diffusion gates (dense direct at N <= 4096, CG above), the
+# /v1/bundle/ragged shape and the one-shot light receipt
+BATCH_PARITY = dict(n=2000, d=128, k=6, q=6)
+BATCH_Q = 8
+DIFF_DIRECT = dict(n=4096, d=128, k=6)
+DIFF_CG = dict(n=5000, d=128, k=6)
+RAGGED_BATCH = dict(corpora=32, n_min=200, n_max=4000, d=768, k=6, bundle_k=8)
+LANE_TOL = 1e-5  # batch vs single, card vs CPU: relative to max|U|, or absolute on gates
+RAGGED_REL, RAGGED_ABS = 1e-3, 1e-4  # tests/test_ragged.py:41-44
 
 
 def check(cond: bool, msg: str) -> None:
@@ -893,6 +918,346 @@ def card_vs_cpu(tag: str, Y, psi, k: int, kernel: str) -> tuple[dict, Oscillink]
     return {"launches": counts[kernel], **gpu}, lat
 
 
+# -- the multi-query serving paths (kernel K1 at their shapes) -------------------
+
+
+def queries(Y: np.ndarray, q: int) -> np.ndarray:
+    """Q query vectors: the normalized means of rows 32i .. 32i + 31."""
+    m = Y[: 32 * q].reshape(q, 32, -1).mean(axis=1)
+    return (m / (np.linalg.norm(m, axis=1, keepdims=True) + 1e-12)).astype(np.float32)
+
+
+def k1_device_ms(g, X, reps: int = 50) -> float:
+    """K1's own device time per launch at (g, X), separated from the host's
+    per-call cost, which bounds back-to-back calls of a small apply: CUDA
+    events around ``reps`` launches queued behind a spin kernel, so the
+    card runs them back to back and the span holds every launch.  Fails
+    if the host had not queued them all before the spin ended."""
+    spmv.lap_matvec_cuda(g.idx, g.wn, X)
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    torch.cuda._sleep(50_000_000)  # about 25 ms at the H100's clocks
+    marks[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        spmv.lap_matvec_cuda(g.idx, g.wn, X)
+    host_ms = 1000.0 * (time.perf_counter() - t0)
+    marks[2].record()
+    torch.cuda.synchronize()
+    spin_ms = marks[0].elapsed_time(marks[1])
+    check(host_ms < spin_ms, f"K1 device time: queuing took {host_ms} ms, the spin {spin_ms} ms")
+    return marks[1].elapsed_time(marks[2]) / reps
+
+
+def k1_case(shape: dict, g, X) -> dict:
+    """K1 against its plain version on (g, X), rtol/atol TOL and bit-equal
+    from launch to launch; then `time_kernel`'s times and bytes bound, and
+    the kernel's own device time back to back (`k1_device_ms`)."""
+    out, again = lap_matvec(g, X), lap_matvec(g, X)
+    ref = spmv.lap_matvec_ref(g.idx, g.wn, X)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()), f"K1 output not finite at {shape}")
+    check(torch.allclose(out, ref, rtol=TOL, atol=TOL), f"K1 != plain at {shape}: {err}")
+    check(torch.equal(out, again), f"K1 differs from launch to launch at {shape}")
+    del out, again, ref
+    n, k = g.idx.shape
+    row = time_kernel({**shape, "n": n, "d": X.shape[1], "k": k,
+                       "slab_cols": k1_slab_cols(n, X.shape[1], k)}, {"g": g, "X": X, "err": err})
+    return {**row, "device_ms": k1_device_ms(g, X)}
+
+
+def ragged_inputs() -> tuple[list, list]:
+    """The /v1/bundle/ragged shape: corpora of N_i spread evenly from n_min
+    to n_max, Gaussian rows (`data`), one query each."""
+    r = RAGGED_BATCH
+    sizes = np.linspace(r["n_min"], r["n_max"], r["corpora"]).astype(int)
+    pairs = [data(int(n), r["d"], seed=100 + i) for i, n in enumerate(sizes)]
+    return [Y for Y, _ in pairs], [p for _, p in pairs]
+
+
+def ragged_union(corpora: list, k: int):
+    """The union graph `bundle_ragged` builds for one k-group on the card:
+    corpora zero-padded to its bucket, each graph built alone."""
+    n_pad = -(-max(len(c) for c in corpora) // tragged._BUCKET) * tragged._BUCKET
+    Ys = torch.zeros((len(corpora), n_pad, corpora[0].shape[1]), device="cuda")
+    for i, c in enumerate(corpora):
+        Ys[i, : len(c)] = torch.from_numpy(c).cuda()
+    return union_graph([build_graph(Y, k) for Y in Ys])
+
+
+def k1_narrow(corpus_g, ragged_g) -> list:
+    """K1 at the serving paths' new widths: the corpus graph at D = 1 (one
+    diffusion solve), D = BATCH_Q (the batched diffusion solve) and D = 16,
+    the 4099-row graph at D = 3, and the ragged phase's union graph at
+    D = 768."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for graph, g, d in (("corpus", corpus_g, 1), ("corpus", corpus_g, BATCH_Q),
+                        ("corpus", corpus_g, 16), ("ragged_4099", ragged_g, 3)):
+        X = torch.randn(g.n_nodes, d, generator=gen, device="cuda")
+        rows.append(k1_case({"graph": graph}, g, X))
+    gu = ragged_union(ragged_inputs()[0], RAGGED_BATCH["k"])
+    X = torch.randn(gu.n_nodes, RAGGED_BATCH["d"], generator=gen, device="cuda")
+    rows.append(k1_case({"graph": "ragged_union"}, gu, X))
+    emit("k1_narrow", rows=rows, tol=TOL, bit_equal_repeat=True)
+    return rows
+
+
+def batched_parity() -> dict:
+    """`solve_Ustar_batch` and `bundle_batch` on the card, launch counts set
+    to 0 just before and read just after, against the port's CPU path on
+    the card's graph: identical per-query iterations and bundle ids, U*
+    within LANE_TOL of max|U|.  Two of the queries carry gates in [0, 1],
+    so the lanes stop at different counts."""
+    n, d, k, q = (BATCH_PARITY[key] for key in ("n", "d", "k", "q"))
+    Y, _ = data(n, d, seed=3)
+    psis = queries(Y, q)
+    rng = np.random.default_rng(3)
+    gates = np.ones((q, n), dtype=np.float32)
+    gates[1], gates[4] = rng.random(n), rng.random(n)
+    lat = Oscillink(Y, kneighbors=k)
+    reset_counts()
+    t0 = time.perf_counter()
+    U = lat.solve_Ustar_batch(psis, gates)
+    ustar_ms = sync_ms(t0)
+    iters = lat.last_ustar_batch["iters"]
+    t0 = time.perf_counter()
+    bundles = [[b["id"] for b in qb] for qb in lat.bundle_batch(psis, gates, k=8)]
+    bundle_ms = sync_ms(t0)
+    counts = read_counts()
+    bundle_iters = lat.last_ustar_batch["iters"]
+    cpu = Oscillink(Y, kneighbors=k, device="cpu", graph=lat.graph)
+    U_cpu = cpu.solve_Ustar_batch(psis, gates)
+    cpu_iters = cpu.last_ustar_batch["iters"]
+    cpu_bundles = [[b["id"] for b in qb] for qb in cpu.bundle_batch(psis, gates, k=8)]
+    err = float(np.abs(U - U_cpu).max())
+    scale = float(np.abs(U_cpu).max())
+    emit("batched_parity", **BATCH_PARITY, iters=iters, cpu_iters=cpu_iters, launches=counts,
+         max_abs_err=err, max_abs_U=scale, ustar_ms=ustar_ms, bundle_ms=bundle_ms,
+         bundle_ids=bundles)
+    check(U.shape == (q, n, d) and bool(np.isfinite(U).all()), "batched U* invalid")
+    check(len(set(iters)) > 1, f"the batch's lanes all stopped together: {iters}")
+    check(iters == cpu_iters, f"batched iterations: cuda {iters} vs cpu {cpu_iters}")
+    check(bundle_iters == iters, f"bundle_batch iterations {bundle_iters} != U* batch {iters}")
+    check(err <= LANE_TOL * scale, f"batched U*: cuda vs cpu {err} > {LANE_TOL} * {scale}")
+    check(bundles == cpu_bundles, "batched bundle ids: cuda != cpu")
+    check(counts["K1"] == 2 * (1 + max(iters)),
+          f"K1 launches {counts['K1']} != 2 solves x (1 + {max(iters)})")
+    return {"launches": counts["K1"], "iters": iters}
+
+
+def batched_corpus() -> dict:
+    """The /v1/bundle batch path at the corpus tier: the corpus lattice,
+    `diffusion_gates_batch` and `bundle_batch` for BATCH_Q queries, each
+    timed to a sync with the launch counts set to 0 just before it; U* of
+    the batch (`solve_Ustar_batch`) against the Q single solves on the card
+    (identical iterations, U* within LANE_TOL of max|U|, identical bundle
+    ids); the single diffusion solve (K1 at D = 1) against the CPU on the
+    card's graph; then K1 at the batch's [N, Q·D] width."""
+    n, d, k = CORPUS["n"], CORPUS["d"], CORPUS["k"]
+    Y, _ = data(n, d)
+    psis = queries(Y, BATCH_Q)
+    t = {}
+    t0 = time.perf_counter()
+    lat = Oscillink(Y, kneighbors=k)
+    t["build_ms"] = sync_ms(t0)
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    G = lat.diffusion_gates_batch(psis)
+    t["gates_ms"] = sync_ms(t0)
+    launches["gates"] = read_counts()["K1"]
+    gate_iters = lat.last_gates["iters"]
+    reset_counts()
+    t0 = time.perf_counter()
+    U = lat.solve_Ustar_batch(psis, G)
+    t["ustar_ms"] = sync_ms(t0)
+    launches["ustar"] = read_counts()["K1"]
+    peak = torch.cuda.max_memory_allocated()
+    iters = lat.last_ustar_batch["iters"]
+    reset_counts()
+    t0 = time.perf_counter()
+    bundles = [[b["id"] for b in qb] for qb in lat.bundle_batch(psis, G, k=8)]
+    t["bundle_ms"] = sync_ms(t0)
+    launches["bundle"] = read_counts()["K1"]
+    bundle_iters = lat.last_ustar_batch["iters"]
+    check(U.shape == (BATCH_Q, n, d) and bool(np.isfinite(U).all()), "corpus batch U* invalid")
+    # the single-query path, one query at a time
+    single_ms, single_iters, errs = [], [], []
+    for qi in range(BATCH_Q):
+        t0 = time.perf_counter()
+        lat.set_query(psis[qi], gates=G[qi])
+        Uq = lat._solve_ustar_device()
+        ids = [b["id"] for b in lat.bundle(k=8)]
+        single_ms.append(sync_ms(t0))
+        single_iters.append(lat.last_ustar["iters"])
+        errs.append(float((torch.from_numpy(U[qi]).cuda() - Uq).abs().max() / Uq.abs().max()))
+        check(ids == bundles[qi], f"corpus batch bundle {qi}: {bundles[qi]} vs single {ids}")
+    del U, Uq
+    # every lane of the batched gates against its single diffusion solve on
+    # the card (K1 at D = 1): gates within LANE_TOL, identical iterations
+    gates_single_ms, single_gate_iters, lane_errs, gate_launches = [], [], [], []
+    for qi in range(BATCH_Q):
+        reset_counts()
+        t0 = time.perf_counter()
+        h = lat.diffusion_gates(psis[qi])
+        gates_single_ms.append(sync_ms(t0))
+        gate_launches.append(read_counts()["K1"])
+        single_gate_iters.append(lat.last_gates["iters"])
+        lane_errs.append(float(np.abs(h - G[qi]).max()))
+        if qi == 0:
+            h0 = h
+    t["gates_single_ms"] = gates_single_ms
+    launches["gates_single"] = gate_launches
+    # one single solve against the CPU on the card's graph
+    cpu = Oscillink(Y, kneighbors=k, device="cpu", graph=lat.graph)
+    h_cpu = cpu.diffusion_gates(psis[0])
+    cpu_gate_iters = cpu.last_gates["iters"]
+    del cpu
+    gate_err = float(np.abs(h0 - h_cpu).max())
+    emit("batched_corpus", **CORPUS, queries=BATCH_Q, **t, single_query_ms=single_ms,
+         batch_ms_per_query=(t["gates_ms"] + t["bundle_ms"]) / BATCH_Q,
+         single_ms_per_query=statistics.mean(single_ms), max_memory_allocated_bytes=peak,
+         iters=iters, single_iters=single_iters, gate_iters=gate_iters,
+         single_gate_iters=single_gate_iters, cpu_gate_iters=cpu_gate_iters, launches=launches,
+         U_rel_err=errs, gates_cuda_vs_cpu=gate_err, gates_batch_vs_single=lane_errs,
+         bundle_ids=bundles)
+    check(iters == single_iters, f"corpus batch iterations {iters} != single {single_iters}")
+    check(bundle_iters == iters, f"bundle_batch iterations {bundle_iters} != U* batch {iters}")
+    check(max(errs) <= LANE_TOL, f"corpus batch U* vs single: {max(errs)}")
+    check(gate_iters == single_gate_iters,
+          f"corpus gate iterations: batch {gate_iters} != single {single_gate_iters}")
+    check(launches["gates"] == 1 + max(gate_iters),
+          f"K1 launches in the batched gates {launches['gates']} != 1 + {max(gate_iters)}")
+    check(launches["ustar"] == 1 + max(iters),
+          f"K1 launches in the batched U* {launches['ustar']} != 1 + {max(iters)}")
+    check(launches["bundle"] == 1 + max(iters),
+          f"K1 launches in bundle_batch {launches['bundle']} != 1 + {max(iters)}")
+    check(gate_launches == [1 + it for it in single_gate_iters],
+          f"K1 launches in the single gate solves {gate_launches} != 1 + {single_gate_iters}")
+    check(cpu_gate_iters == single_gate_iters[0],
+          f"corpus gate iterations: cuda {single_gate_iters[0]} vs cpu {cpu_gate_iters}")
+    check(gate_err <= LANE_TOL, f"corpus diffusion gates: cuda vs cpu {gate_err}")
+    check(max(lane_errs) <= LANE_TOL,
+          f"corpus diffusion gates: batch lanes vs single solves {lane_errs}")
+    # K1 at the batch's width: the [N, Q·D] view of the solve's blocks
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    X = torch.randn(n, BATCH_Q * d, generator=gen, device="cuda")
+    row = k1_case({"graph": "corpus", "queries": BATCH_Q}, lat.graph, X)
+    del lat, X
+    torch.cuda.empty_cache()
+    return {"launches": launches, "k1_row": row, "ms": t}
+
+
+def diffusion_standalone() -> dict:
+    """`compute_diffusion_gates` on the card against the CPU: dense direct
+    at 4096 x 128 and CG (K1 at D = 1) at 5000 x 128, after checking that
+    the card's and the CPU's graph builds agree slot for slot.  Launch
+    counts set to 0 just before each card run and read just after."""
+    out = {}
+    for shape, method in ((DIFF_DIRECT, "direct"), (DIFF_CG, "cg")):
+        n, d, k = shape["n"], shape["d"], shape["k"]
+        Y, psi = data(n, d, seed=5)
+        g = build_graph(torch.from_numpy(Y).cuda(), k)
+        cpu_idx = build_graph(torch.from_numpy(Y), k).idx.numpy()
+        ties = near_tie_witness(Y, g.idx.cpu().numpy(), cpu_idx)
+        check(ties["slots_differ"] == 0, f"diffusion {method}: card and CPU graphs differ: {ties}")
+        compute_diffusion_gates(Y, psi, kneighbors=k, method=method)  # warm
+        reset_counts()
+        t0 = time.perf_counter()
+        h = compute_diffusion_gates(Y, psi, kneighbors=k, method=method)
+        ms = sync_ms(t0)
+        k1 = read_counts()["K1"]
+        h_cpu = compute_diffusion_gates(Y, psi, kneighbors=k, method=method, device="cpu")
+        err = float(np.abs(h - h_cpu).max())
+        iters = None
+        if method == "cg":
+            s = diffusion_sources(torch.from_numpy(Y).cuda(), psi[None], 1.0)[:, 0]
+            iters = screened_solve(g, s, 0.1, 1e-4, 256)[1]
+        out[method] = {**shape, "ms": ms, "launches": k1, "iters": iters, "max_abs_err": err}
+        check(h.shape == (n,) and bool(np.isfinite(h).all()), f"diffusion {method}: gates invalid")
+        check(err <= LANE_TOL, f"diffusion {method}: cuda vs cpu {err}")
+        check(k1 == (0 if iters is None else 1 + iters),
+              f"diffusion {method}: K1 launches {k1}, iterations {iters}")
+    emit("diffusion", **out)
+    return out
+
+
+def ragged_phase() -> dict:
+    """`bundle_ragged` at the /v1/bundle/ragged shape, launch counts set to
+    0 just before and read just after, against each corpus served alone by
+    a lattice on the card (tests/test_ragged.py's bar).  One k-group: its
+    K1 launches are the settle's 1 + max iterations plus the U* solve's."""
+    r = RAGGED_BATCH
+    corpora, psis = ragged_inputs()
+    kw = dict(kneighbors=r["k"], bundle_k=r["bundle_k"])
+    tragged.bundle_ragged(corpora, psis, **kw)  # warm
+    reset_counts()
+    t0 = time.perf_counter()
+    res = tragged.bundle_ragged(corpora, psis, **kw)
+    ms = sync_ms(t0)
+    k1 = read_counts()["K1"]
+    worst = {"score_rel": 0.0, "align_rel": 0.0}
+    same_iters = 0
+    t0 = time.perf_counter()
+    for c, p, out in zip(corpora, psis, res):
+        lat = Oscillink(c, kneighbors=r["k"])
+        lat.set_query(p)
+        st = lat.settle(max_iters=12, tol=1e-3)
+        ref = lat.bundle(k=r["bundle_k"])
+        same_iters += int(st["iters"] == out["iters"])
+        check([e["id"] for e in out["bundle"]] == [e["id"] for e in ref],
+              f"ragged bundle of the {len(c)}-row corpus differs from serving it alone")
+        for got, want in zip(out["bundle"], ref):
+            for key in ("score", "align"):
+                gap = abs(got[key] - want[key])
+                check(gap <= max(RAGGED_REL * abs(want[key]), RAGGED_ABS),
+                      f"ragged {key} of the {len(c)}-row corpus: {got[key]} vs {want[key]}")
+                worst[f"{key}_rel"] = max(worst[f"{key}_rel"], gap / max(abs(want[key]), 1e-30))
+    alone_ms = sync_ms(t0)
+    settle_iters, ustar_iters = [o["iters"] for o in res], [o["ustar_iters"] for o in res]
+    expect = (1 + max(settle_iters)) + (1 + max(ustar_iters))
+    emit("ragged", **r, ms=ms, served_alone_ms=alone_ms, k_groups=1,
+         launches_per_k_group=[k1], settle_iters=settle_iters, ustar_iters=ustar_iters,
+         same_iters_as_alone=same_iters, worst_rel=worst)
+    check(k1 == expect, f"ragged K1 launches {k1} != {expect} (two solves, 1 + max each)")
+    return {"launches": k1, "ms": ms}
+
+
+def oneshot_phase() -> dict:
+    """`settle_receipt_light` at the headline shape, launch counts set to 0
+    just before and read just after, against the lattice's light receipt on
+    the card: ΔH within LATTICE_TOL, identical iterations and edge count."""
+    Y, psi = data(HEADLINE["n"], HEADLINE["d"])
+    k = HEADLINE["k"]
+    settle_receipt_light(Y, psi, kneighbors=k)  # warm
+    runs = []
+    for _ in range(3):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = settle_receipt_light(Y, psi, kneighbors=k)
+        runs.append(sync_ms(t0))
+        k1 = read_counts()["K1"]
+    lat = Oscillink(Y, kneighbors=k)
+    lat.set_query(psi)
+    lat.set_receipt_detail("light")
+    st = lat.settle(dt=1.0, max_iters=12, tol=1e-3)
+    rec = lat.receipt()
+    rel = abs(out["deltaH_total"] - rec["deltaH_total"]) / max(abs(rec["deltaH_total"]), 1e-30)
+    emit("oneshot", **HEADLINE, ms=statistics.median(runs), runs_ms=runs, launches=k1,
+         deltaH_rel=rel, **out)
+    check(rel <= LATTICE_TOL, f"one-shot deltaH differs from the lattice's: {rel}")
+    check(out["settle_iters"] == st["iters"] and out["ustar_iters"] == rec["meta"]["ustar_iters"],
+          "one-shot iterations differ from the lattice's")
+    check(out["edge_count"] == lat._n_edges // 2, "one-shot edge count differs")
+    check(k1 == out["settle_iters"] + out["ustar_iters"] + 3,
+          f"one-shot K1 launches {k1} != two solves (1 + iterations each) + deltaH")
+    return {"launches": k1, "ms": statistics.median(runs)}
+
+
 # -- the bucket-shuffle probe (kernel K5) ---------------------------------------
 
 
@@ -1074,8 +1439,24 @@ def main() -> int:
     rows = [time_kernel(HEADLINE, cases["headline"]), time_kernel(CORPUS, cases["corpus"])]
     main_row = rows[1]
     sweep = k1_slab_sweep(CORPUS, cases["corpus"])
-    k1_err = max(c["err"] for c in cases.values())
+    # 7b. K1 at the serving paths' narrow widths and on the ragged union graph
+    narrow = k1_narrow(cases["corpus"]["g"], cases["ragged"]["g"])
+    k1_err = max([c["err"] for c in cases.values()] + [r["max_abs_err"] for r in narrow])
     del cases
+    torch.cuda.empty_cache()
+
+    # 7c. the multi-query serving paths through K1, each with its launches
+    # counted from 0: the batched lattice (card vs CPU), the /v1/bundle batch
+    # path at the corpus tier, standalone diffusion gates, ragged bundles,
+    # the one-shot light receipt
+    serving = {"batched_parity": batched_parity()["launches"]}
+    corpus_batch = batched_corpus()
+    serving.update({f"batched_corpus_{key}": val for key, val in corpus_batch["launches"].items()})
+    diff = diffusion_standalone()
+    serving.update({f"diffusion_{key}": val["launches"] for key, val in diff.items()})
+    serving["ragged"] = ragged_phase()["launches"]
+    serving["oneshot"] = oneshot_phase()["launches"]
+    k1_err = max(k1_err, corpus_batch["k1_row"]["max_abs_err"])
     torch.cuda.empty_cache()
 
     # 8. windowed corpus: the full-width windowed main path through K4
@@ -1126,8 +1507,9 @@ def main() -> int:
         "bench_graph_full_width_ms": win_timing["k1_full_width_ms"],
         "ptxas": k1_ptxas(libs["spmv"]["ptxas"]),
         "launches_per_settle": settle_launches,
+        "launches_serving": serving,
         "gather_ceiling_ms": main_row["gather_ceiling_ms"],
-        "per_shape": rows,
+        "per_shape": rows + narrow + [corpus_batch["k1_row"]],
     }] + [{
         "name": kname,
         "route": "cuda",

@@ -20,7 +20,10 @@ from __future__ import annotations
 __version__ = "0.4.3"
 
 from .core.lattice import OscillinkLattice, json_line_logger  # noqa: E402,F401
+from .core.perf import compare_perf  # noqa: E402,F401
+from .core.provenance import compare_provenance  # noqa: E402,F401
 from .core.receipts import verify_receipt, verify_receipt_mode  # noqa: E402,F401
+from .preprocess.diffusion import compute_diffusion_gates  # noqa: E402,F401
 
 Oscillink = OscillinkLattice
 
@@ -29,6 +32,9 @@ __all__ = [
     "OscillinkLattice",
     "verify_receipt",
     "verify_receipt_mode",
+    "compare_perf",
+    "compare_provenance",
+    "compute_diffusion_gates",
     "json_line_logger",
     "__version__",
 ]

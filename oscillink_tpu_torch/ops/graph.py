@@ -22,7 +22,7 @@ Only the exact similarity scan is ported so far; the approximate modes
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -135,10 +135,12 @@ def stable_topk(S: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals, idx
 
 
-def _topk_dense(Yn: torch.Tensor, k: int):
+def _topk_dense(Yn: torch.Tensor, k: int, jitter: Optional[torch.Tensor] = None):
     """Dense [N, N] similarity + top-k. Used for moderate N."""
     n = Yn.shape[0]
     S = Yn @ Yn.T
+    if jitter is not None:
+        S = S + jitter
     diag = torch.arange(n, device=Yn.device)
     S[diag, diag] = -torch.inf
     vals, idx = stable_topk(S, k)
@@ -168,13 +170,16 @@ def build_graph(
     k: int,
     *,
     row_cap: float = 1.0,
+    jitter: Optional[torch.Tensor] = None,
     block_rows: int = DEFAULT_BLOCK_ROWS,
     dense_limit: int = DENSE_TOPK_LIMIT,
     similarity: str = "exact",
 ) -> Graph:
     """Build the mutual-kNN graph on Y's device. ``k`` must be pre-clamped
-    to [1, N-1].  Only ``similarity="exact"`` (or an ``"auto"`` that resolves
-    to it) is ported."""
+    to [1, N-1].  ``jitter`` is an optional [N, N] tie-break perturbation
+    added to the similarities (the reference's seed mode); it takes the
+    dense path whatever N.  Only ``similarity="exact"`` (or an ``"auto"``
+    that resolves to it) is ported."""
     n = Y.shape[0]
     similarity = resolve_similarity(n, similarity)
     if similarity in ("fast", "fastest", "cluster"):
@@ -182,8 +187,8 @@ def build_graph(
     if similarity != "exact":
         raise ValueError(f"unknown similarity mode {similarity!r}")
     Yn = normalize_rows(Y.to(torch.float32))
-    if n <= dense_limit:
-        vals, idx = _topk_dense(Yn, k)
+    if jitter is not None or n <= dense_limit:
+        vals, idx = _topk_dense(Yn, k, jitter)
     else:
         vals, idx = _topk_blocked(Yn, k, block_rows)
     return graph_from_topk(vals, idx, row_cap=row_cap)

@@ -9,6 +9,11 @@ is the max column L2 norm; epsilon guards 1e-18 (denominators) and 1e-12
 The loop is a Python loop: it reads ``res`` on the host once per iteration
 (one device sync each), and stops where the JAX ``lax.while_loop`` stops —
 ``tol`` is compared in float32, as the JAX package stages it.
+
+`cg_solve_lanes` is the port of ``jax.vmap`` over `cg_solve`: independent
+systems stacked on a lane axis, one operator application an iteration for
+all of them, and each lane frozen at its own trip count.  `cg_solve` is its
+one-lane call, so the two cannot drift apart.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-__all__ = ["cg_solve", "cg_solve_kpap"]
+__all__ = ["cg_solve", "cg_solve_kpap", "cg_solve_lanes"]
 
 
 def cg_solve(
@@ -30,40 +35,16 @@ def cg_solve(
     max_iters: int = 100,
 ) -> tuple[torch.Tensor, int, float]:
     """CG for an SPD operator; multi-RHS [N, D]. Returns (x, iters, res) with
-    iters and res as host numbers.  ``M_diag`` is the Jacobi diagonal [N]."""
+    iters and res as host numbers.  ``M_diag`` is the Jacobi diagonal [N].
+
+    The one-lane call of `cg_solve_lanes` on the [N, D] block."""
     b2 = b[:, None] if b.ndim == 1 else b
-    x = torch.zeros_like(b2) if x0 is None else x0.reshape(b2.shape).to(b2.dtype)
-    inv_M = None if M_diag is None else 1.0 / (M_diag[:, None] + 1e-12)
-
-    def precond(r):
-        return r if inv_M is None else r * inv_M
-
-    tol32 = float(np.float32(tol))
-    max_iters = int(max_iters)
-
-    r = b2 - A_mul(x)
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z, dim=0)
-    it, res = 0, float("inf")
-    # the reference's for-loop always performs >= 1 iteration
-    while it == 0 or (it < max_iters and res > tol32):
-        Ap = A_mul(p)
-        denom = torch.sum(p * Ap, dim=0) + 1e-18
-        alpha = rz / denom
-        x = x + p * alpha
-        r = r - Ap * alpha
-        res_t = torch.max(torch.linalg.vector_norm(r, dim=0))
-        z = precond(r)
-        rz_new = torch.sum(r * z, dim=0)
-        beta = rz_new / (rz + 1e-18)
-        p = z + p * beta
-        rz = rz_new
-        it += 1
-        res = float(res_t)
-    if b.ndim == 1:
-        x = x[:, 0]
-    return x, it, res
+    x, its, res = cg_solve_lanes(
+        A_mul, b2, x0=None if x0 is None else x0.reshape(b2.shape),
+        M_diag=None if M_diag is None else M_diag[:, None], tol=tol, max_iters=max_iters,
+        row_dim=0,
+    )
+    return x.reshape(b.shape), int(its[0]), float(res[0])
 
 
 def cg_solve_kpap(
@@ -116,3 +97,88 @@ def cg_solve_kpap(
         it += 1
         res = float(res_t)
     return x, it, res
+
+
+def cg_solve_lanes(
+    A_mul: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    M_diag: Optional[torch.Tensor] = None,
+    tol: float = 1e-3,
+    max_iters: int = 100,
+    *,
+    row_dim: int,
+) -> tuple[torch.Tensor, np.ndarray, np.ndarray]:
+    """`cg_solve` on L independent systems at once: the port of a vmapped
+    `cg_solve` (``jax.vmap`` over its ``lax.while_loop``).
+
+    ``b`` is 3-D with its rows on ``row_dim``, lanes on the other leading
+    axis and D columns last: ``row_dim=0`` is ``[N, L, D]`` (L queries on
+    one graph), ``row_dim=1`` is ``[L, N, D]`` (L corpora on their disjoint
+    union); a 2-D ``[N, D]`` block (``row_dim=0``) is one lane.  ``A_mul``
+    maps such a block to one of its shape; it sees the whole block, so the
+    operator launches once an iteration for all lanes.  ``M_diag`` (the
+    Jacobi diagonal) broadcasts against ``b``.
+
+    Each lane runs `cg_solve`'s arithmetic with its own residual (the max
+    column norm over its D columns), trip count and stop test
+    ``(it == 0) | ((it < max_iters) & (res > tol))``, ``tol`` in float32.
+    A lane that has stopped keeps its state by a select, as the vmapped
+    ``while_loop`` does; its columns are still computed and discarded, and
+    while every lane is live no select runs.  The loop reads the [L]
+    residuals on the host once an iteration and runs the stop test there,
+    so one lane costs the device what `cg_solve` always did.  Returns
+    (x, iterations [L] int32, residuals [L] float32), the last two on the
+    host."""
+    if b.dim() not in (2, 3) or row_dim not in (0, 1) or (b.dim() == 2 and row_dim != 0):
+        raise ValueError(f"cg_solve_lanes: b must be [N, D] or 3-D with row_dim 0 or 1, "
+                         f"got {tuple(b.shape)} and row_dim {row_dim}")
+    x = torch.zeros_like(b) if x0 is None else x0.reshape(b.shape).to(b.dtype)
+    inv_M = None if M_diag is None else 1.0 / (M_diag + 1e-12)
+
+    def precond(r):
+        return r if inv_M is None else r * inv_M
+
+    def col_sum(t):
+        return torch.sum(t, dim=row_dim, keepdim=True)
+
+    lane_shape = [1] * b.dim()
+    if b.dim() == 3:
+        lane_shape[1 - row_dim] = b.shape[1 - row_dim]
+    n_lanes = int(np.prod(lane_shape))
+    tol32 = float(np.float32(tol))
+    max_iters = int(max_iters)
+
+    r = b - A_mul(x)
+    z = precond(r)
+    p = z
+    rz = col_sum(r * z)
+    it = [0] * n_lanes
+    res = [float("inf")] * n_lanes
+    while True:
+        # the reference's for-loop always performs >= 1 iteration
+        active = [i == 0 or (i < max_iters and e > tol32) for i, e in zip(it, res)]
+        if not any(active):
+            break
+        Ap = A_mul(p)
+        denom = col_sum(p * Ap) + 1e-18
+        alpha = rz / denom
+        x_n = x + p * alpha
+        r_n = r - Ap * alpha
+        res_t = torch.amax(torch.linalg.vector_norm(r_n, dim=row_dim, keepdim=True), dim=-1)
+        z = precond(r_n)
+        rz_n = col_sum(r_n * z)
+        beta = rz_n / (rz + 1e-18)
+        p_n = z + p * beta
+        if all(active):
+            x, r, p, rz = x_n, r_n, p_n, rz_n
+        else:
+            keep = torch.tensor(active, device=b.device).reshape(lane_shape)
+            x = torch.where(keep, x_n, x)
+            r = torch.where(keep, r_n, r)
+            p = torch.where(keep, p_n, p)
+            rz = torch.where(keep, rz_n, rz)
+        res_h = res_t.reshape(-1).tolist()  # the one host read of the iteration
+        res = [e_n if a else e for a, e_n, e in zip(active, res_h, res)]
+        it = [i + a for a, i in zip(active, it)]
+    return x, np.asarray(it, dtype=np.int32), np.asarray(res, dtype=np.float32)

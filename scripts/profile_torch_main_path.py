@@ -2,7 +2,10 @@
 main path (settle -> U* -> light receipt) at the chip_smoke.py cells: the
 gather path at the headline and corpus shapes, and the windowed tier
 (OSCILLINK_WINDOWED_MATVEC=1, kernel K4) on chip_smoke.py's locality-ordered
-corpus of the same shape.
+corpus of the same shape; then the multi-query serving paths at
+chip_smoke.py's serving cells: the /v1/bundle batch path at the corpus
+(``diffusion_gates_batch``, ``bundle_batch``), ``solve_Ustar_batch`` (its
+CG and the copy of U* to the host) and ``bundle_ragged``.
 
     python3 scripts/profile_torch_main_path.py
 
@@ -30,8 +33,11 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import CORPUS, HEADLINE, data, env, locality_corpus  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BATCH_Q, CORPUS, HEADLINE, RAGGED_BATCH, data, env, locality_corpus, queries, ragged_inputs,
+)
 from oscillink_tpu_torch import Oscillink  # noqa: E402
+from oscillink_tpu_torch.models.ragged import bundle_ragged  # noqa: E402
 
 # cell: (shape, corpus generator, environment, the operator kernel's name)
 CELLS = {
@@ -110,6 +116,34 @@ def profile_cell(name: str, shape: dict, corpus, envs: dict, kernel: str) -> dic
     return {"cell": name, "n": n, "d": d, "k": k, **iters, "build": build, "solve": solve}
 
 
+def profile_serving():
+    """One window per serving path, each after a warm call of its own; K1
+    (``spmv_gather_kernel``) is the operator kernel of all of them.
+    Yields one JSON-ready dict per path."""
+    kernel = "spmv_gather_kernel"
+    n, d, k = CORPUS["n"], CORPUS["d"], CORPUS["k"]
+    Y, _ = data(n, d)
+    psis = queries(Y, BATCH_Q)
+    lat = Oscillink(Y, kneighbors=k)
+    G = lat.diffusion_gates_batch(psis)  # warm-up
+    gates, G = _window(lambda: lat.diffusion_gates_batch(psis), kernel)
+    yield {"cell": "batched_corpus_gates", "n": n, "d": d, "k": k, "queries": BATCH_Q, **gates}
+    lat.bundle_batch(psis, G, k=8)  # warm-up
+    bundles, _ = _window(lambda: lat.bundle_batch(psis, G, k=8), kernel)
+    yield {"cell": "batched_corpus_bundle_batch", "n": n, "d": d, "k": k, "queries": BATCH_Q,
+           **bundles}
+    ustar, _ = _window(lambda: lat.solve_Ustar_batch(psis, G), kernel)
+    yield {"cell": "batched_corpus_solve_Ustar_batch", "n": n, "d": d, "k": k,
+           "queries": BATCH_Q, **ustar}
+    del lat
+    torch.cuda.empty_cache()
+    corpora, qs = ragged_inputs()
+    kw = dict(kneighbors=RAGGED_BATCH["k"], bundle_k=RAGGED_BATCH["bundle_k"])
+    bundle_ragged(corpora, qs, **kw)  # warm-up
+    ragged, _ = _window(lambda: bundle_ragged(corpora, qs, **kw), kernel)
+    yield {"cell": "ragged", **RAGGED_BATCH, **ragged}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA card", file=sys.stderr)
@@ -117,6 +151,8 @@ def main() -> int:
     print(torch.cuda.get_device_name(0), flush=True)
     for name, (shape, corpus, envs, kernel) in CELLS.items():
         print(json.dumps(profile_cell(name, shape, corpus, envs, kernel)), flush=True)
+    for row in profile_serving():
+        print(json.dumps(row), flush=True)
     return 0
 
 

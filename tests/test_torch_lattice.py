@@ -223,8 +223,8 @@ def test_unported_features_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         pt.Oscillink(Y, similarity="fast", device="cpu")
     lat = pt.Oscillink(Y, kneighbors=4, device="cpu")
-    for call in (lat.rebuild_graph, lat.export_state, lat.save_state, lat.solve_Ustar_batch,
-                 lat.bundle_batch, pt.OscillinkLattice.from_state, pt.OscillinkLattice.from_npz):
+    for call in (lat.rebuild_graph, lat.export_state, lat.save_state,
+                 pt.OscillinkLattice.from_state, pt.OscillinkLattice.from_npz):
         with pytest.raises(NotImplementedError):
             call()
 
@@ -265,11 +265,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     bad, ours = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
-    # the windowed tier's modules, K5 and its probe are among those walked
+    # the windowed tier's modules, K5 and its probe, and the multi-query
+    # serving modules are among those walked
     assert {"oscillink_tpu_torch.ops.kernels.window_spmv", "oscillink_tpu_torch.ops.kernels.build",
             "oscillink_tpu_torch.models.coherence", "oscillink_tpu_torch.interop",
             "oscillink_tpu_torch.ops.kernels.bucket_gather",
-            "oscillink_tpu_torch.benchmarks.probe_bucket_gather"} <= set(ours)
+            "oscillink_tpu_torch.benchmarks.probe_bucket_gather",
+            "oscillink_tpu_torch.models.batched", "oscillink_tpu_torch.models.ragged",
+            "oscillink_tpu_torch.models.oneshot", "oscillink_tpu_torch.preprocess.diffusion",
+            "oscillink_tpu_torch.core.perf", "oscillink_tpu_torch.core.provenance"} <= set(ours)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

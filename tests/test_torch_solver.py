@@ -208,3 +208,105 @@ def test_cg_solve_kpap_scales_only_the_scalars():
     assert abs(it_kpap - it_cg) <= 1
     np.testing.assert_allclose(x_kpap.numpy(), x_cg.numpy(), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(x_kpap.numpy(), exact.numpy(), rtol=1e-4, atol=1e-5)
+
+
+# -- cg_solve_lanes: the port of a vmapped cg_solve ----------------------------
+
+
+def _lane_system(n=300, d=128, lanes=4, seed=4):
+    """One graph, ``lanes`` stationary systems whose gates differ, so the
+    lanes stop at different iteration counts."""
+    gj, gt, _, _, lam_j, lam_t, h = _state(n=n, d=d, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    B = rng.random((lanes, n)).astype(np.float32)
+    B[1] = 1.0
+    B[2] = 0.0
+    b = rng.standard_normal((n, lanes, d)).astype(np.float32)
+    return gj, gt, lam_j, lam_t, h["Y"], B, b
+
+
+def _lane_operator(gt, lam_t, B, row_dim):
+    from oscillink_tpu_torch.models.batched import lanes_lap_matvec, union_graph
+
+    n = B.shape[1]
+    if row_dim == 0:
+        Bl, g = _t(B).T.reshape(n, -1, 1), gt
+    else:
+        Bl, g = _t(B)[:, :, None], union_graph([gt] * B.shape[0])
+
+    def A(X):
+        return lam_t.lamG * X + lam_t.lamC * lanes_lap_matvec(g, X, row_dim) + lam_t.lamQ * (Bl * X)
+
+    return A, lam_t.lamG + lam_t.lamQ * Bl
+
+
+@pytest.mark.parametrize("row_dim", [0, 1])
+def test_cg_solve_lanes_freezes_each_lane_at_its_single_solve(row_dim):
+    """Lanes that stop at different counts give, lane by lane, the iterations
+    and the bits of a single cg_solve on that lane's system; the stopped
+    lanes are frozen, not run on to the slowest lane's count."""
+    from oscillink_tpu_torch.ops.solver import cg_solve_lanes
+
+    gj, gt, _, lam_t, Y, B, b = _lane_system()
+    A, M = _lane_operator(gt, lam_t, B, row_dim)
+    lanes = B.shape[0]
+    bb = _t(b) if row_dim == 0 else _t(b).permute(1, 0, 2).contiguous()
+    x0 = _t(Y)[:, None, :].expand_as(bb) if row_dim == 0 else _t(Y)[None].expand_as(bb)
+    x, its, res = cg_solve_lanes(A, bb, x0=x0, M_diag=M, tol=1e-4, max_iters=64, row_dim=row_dim)
+    assert its.shape == (lanes,) and res.shape == (lanes,) and len(set(its.tolist())) > 1
+    for q in range(lanes):
+        Bq = _t(B[q])
+        xs, its1, res1 = tcg_solve(
+            lambda X: tcoh.stationary_matvec(gt, None, lam_t, Bq, X), _t(b[:, q]).contiguous(),
+            x0=_t(Y), M_diag=lam_t.lamG + lam_t.lamQ * Bq, tol=1e-4, max_iters=64,
+        )
+        xq = x[:, q] if row_dim == 0 else x[q]
+        assert its[q] == its1 and res[q] == np.float32(res1)
+        assert torch.equal(xq, xs), q
+
+
+@pytest.mark.parametrize("row_dim", [0, 1])
+@pytest.mark.parametrize("d,tol,max_iters", [(24, 1e-4, 64), (24, 1e-6, 9), (1, 1e-5, 100)])
+def test_cg_solve_lanes_matches_vmapped_jax(row_dim, d, tol, max_iters):
+    """Per-lane iterations equal those of jax.vmap over the JAX cg_solve;
+    x within 1e-5."""
+    gj, gt, lam_j, lam_t, Y, B, b = _lane_system(d=d, seed=5)
+    Bj = jnp.asarray(B)
+
+    def one(Bq, bq):
+        return jcg_solve(lambda X: jcoh.stationary_matvec(gj, None, lam_j, Bq, X), bq,
+                         x0=jnp.asarray(Y), M_diag=lam_j.lamG + lam_j.lamQ * Bq, tol=tol,
+                         max_iters=max_iters)
+
+    xj, itj, _ = jax.jit(jax.vmap(one, in_axes=(0, 1)))(Bj, jnp.asarray(b))
+    A, M = _lane_operator(gt, lam_t, B, row_dim)
+    from oscillink_tpu_torch.ops.solver import cg_solve_lanes
+
+    bb = _t(b) if row_dim == 0 else _t(b).permute(1, 0, 2).contiguous()
+    x0 = _t(Y)[:, None, :].expand_as(bb) if row_dim == 0 else _t(Y)[None].expand_as(bb)
+    x, its, _ = cg_solve_lanes(A, bb, x0=x0, M_diag=M, tol=tol, max_iters=max_iters,
+                               row_dim=row_dim)
+    np.testing.assert_array_equal(its, np.asarray(itj))
+    xt = x.permute(1, 0, 2) if row_dim == 0 else x
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-5, atol=1e-5)
+
+
+def test_cg_solve_lanes_at_least_one_iteration_and_bad_layouts():
+    from oscillink_tpu_torch.ops.solver import cg_solve_lanes
+
+    A = torch.tensor([2.0, 3.0, 4.0])[:, None, None]
+    b = torch.ones(3, 2, 1)
+    x0 = (1.0 / A).expand(3, 2, 1)
+    # an exact start: every lane still runs one iteration
+    x, its, res = cg_solve_lanes(lambda X: A * X, b, x0=x0, tol=1.0, row_dim=0)
+    assert its.tolist() == [1, 1] and float(res.max()) <= 1e-6
+    _, its, _ = cg_solve_lanes(lambda X: A * X, b, tol=1e-12, max_iters=2, row_dim=0)
+    assert its.tolist() == [2, 2]
+    # a 2-D block is one lane, with its rows first
+    _, its, _ = cg_solve_lanes(lambda X: A[:, 0] * X, b[:, :, 0], tol=1e-12, max_iters=2,
+                               row_dim=0)
+    assert its.tolist() == [2]
+    for bad, row_dim in ((torch.ones(3), 0), (torch.ones(3, 2), 1), (b, 2),
+                         (torch.ones(3, 2, 1, 1), 0)):
+        with pytest.raises(ValueError):
+            cg_solve_lanes(lambda X: X, bad, row_dim=row_dim)
