@@ -32,7 +32,16 @@ through the public entry points:
   corpus lattice's ``diffusion_gates`` against the CPU; ``bundle_ragged``
   at the /v1/bundle/ragged shape against each corpus served alone; and the
   one-shot light receipt against the lattice's.  Each solve's K1 launches
-  must equal 1 + its slowest lane's iterations.
+  must equal 1 + its slowest lane's iterations;
+* ``similarity="auto"``, the service's default, all through K1: the bf16
+  scan's routes held to f64 and timed; at 131072 x 768 x k8 auto resolves
+  to the fast scan, held to the exact graph of the same run (``"fastest"``
+  and ``rebuild_graph(similarity="fast")`` give its bits); the blocked fast
+  path (16384 x 768), the IVF build (65536 x 128) and the seeded host build
+  (8192 x 128) each against the port's CPU path; the cluster tier at 524288
+  x 768 x k8, accepted as IVF on the JAX package's loose study corpus, its
+  tight corpus and an isotropic one built too; export and import (JSON
+  state, NPZ) on the card against the CPU.
 
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
@@ -53,6 +62,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -66,7 +76,9 @@ from oscillink_tpu_torch.models import ragged as tragged
 from oscillink_tpu_torch.models.batched import union_graph
 from oscillink_tpu_torch.models.oneshot import settle_receipt_light
 from oscillink_tpu_torch.preprocess.diffusion import diffusion_sources, screened_solve
-from oscillink_tpu_torch.ops.graph import build_graph, lap_matvec
+from oscillink_tpu_torch.ops import graph as tgraph
+from oscillink_tpu_torch.ops import ivf as tivf
+from oscillink_tpu_torch.ops.graph import build_graph, graph_from_topk, lap_matvec, normalize_rows
 from oscillink_tpu_torch.ops.kernels import bucket_gather as bg
 from oscillink_tpu_torch.ops.kernels import build as kbuild
 from oscillink_tpu_torch.ops.kernels import spmv
@@ -77,6 +89,7 @@ from oscillink_tpu_torch.ops.receipts import deltaH_tree_np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL = 1e-5  # kernel vs plain: same K order, the gap is FMA contraction only
 # K2-K4 vs the one-hot plain versions, relative to max|plain|: the kernels'
 # gather-form products differ from the one-hot form's bf16 passes by about
@@ -132,6 +145,15 @@ DIFF_CG = dict(n=5000, d=128, k=6)
 RAGGED_BATCH = dict(corpora=32, n_min=200, n_max=4000, d=768, k=6, bundle_k=8)
 LANE_TOL = 1e-5  # batch vs single, card vs CPU: relative to max|U|, or absolute on gates
 RAGGED_REL, RAGGED_ABS = 1e-3, 1e-4  # tests/test_ragged.py:41-44
+# similarity="auto": the blocked fast path held to the CPU (auto forced to
+# "fast" above 8192 rows), the cluster tier (the tight IVF study corpus), the
+# IVF build held to the CPU at the default geometry (C = 1024, P = 128), and
+# the row-blocked seeded host build
+FAST_PARITY = dict(n=16384, d=768, k=8, fast_sim_n=8192)
+CLUSTER = dict(n=524288, d=768, k=8, centres=1024, spread=0.6)
+TIGHT_SPREAD = 0.35
+IVF_PARITY = dict(n=65536, d=128, k=8, centres=2048)
+SEEDED = dict(n=8192, d=128, k=8, seed=3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1313,6 +1335,496 @@ def bucket_gather_phase() -> dict:
     }
 
 
+# -- similarity="auto": the fast scan, the IVF build, seeded builds, state ------
+
+
+def scan_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 scan as a TF32 matmul of the bf16 values (exact in TF32's
+    10-bit mantissa), TF32 allowed inside the call only."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return a.float() @ b.float().T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# the ways to compute the bf16 scan with f32 sums on the card: the port's
+# (`graph.scan_bf16`, a bf16 GEMM with an f32 output) and two alternatives
+SCAN_ROUTES = {
+    "mm_out_dtype": tgraph.scan_bf16,
+    "tf32": scan_tf32,
+    "f32": lambda a, b: a.float() @ b.float().T,
+}
+
+
+def scan_routes() -> dict:
+    """The bf16 scan's routes on one corpus row block, [1024, 768] against
+    all 131072 rows, each held to the f64 product of the same bf16 values
+    within the f32 summation bound gamma_D (unit rows) and timed by CUDA
+    events; TF32 must be off again afterwards.  The port's route
+    (`graph.scan_bf16`) must be the fastest."""
+    n, d = CORPUS["n"], CORPUS["d"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Yb = normalize_rows(torch.randn(n, d, generator=gen, device="cuda")).to(torch.bfloat16)
+    a = Yb[:1024]
+    ref = a.double() @ Yb.double().T
+    nu = d * 2.0**-24
+    bound = 1.01 * nu / (1 - nu)
+    # bytes: both operands read once, the f32 block written once; operations
+    # at the bf16 tensor-core peak
+    bytes_moved = (a.numel() + Yb.numel()) * 2 + 1024 * n * 4
+    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, 2.0 * 1024 * n * d / BF16_FLOPS)
+    routes = {}
+    for name, fn in SCAN_ROUTES.items():
+        S = fn(a, Yb)
+        err = float((S.double() - ref).abs().max())
+        routes[name] = {"dtype": str(S.dtype), "max_abs_err": err,
+                        "ms": cuda_ms(lambda fn=fn: fn(a, Yb), reps=20)}
+        check(S.dtype == torch.float32, f"bf16 scan route {name} gave {S.dtype}")
+        check(err <= bound, f"bf16 scan route {name}: {err} > {bound}")
+        del S
+    emit("bf16_scan_routes", shape=f"[1024, {d}] x [{n}, {d}] bf16 -> f32", bound_ms=bound_ms,
+         err_bound=bound, route_taken="mm_out_dtype", routes=routes)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 left on after the scan routes")
+    check(min(routes, key=lambda r: routes[r]["ms"]) == "mm_out_dtype",
+          f"the port's bf16 scan route is not the fastest: {routes}")
+    del ref, Yb, a
+    torch.cuda.empty_cache()
+    return routes
+
+
+def lattice_flow(lat: Oscillink, psi, chain=(2, 5, 7, 9)) -> dict:
+    """Settle, U*, full receipt, bundle and chain receipt on a built
+    lattice, each timed to a sync; what the card and the CPU must agree
+    on, and the K1 launches the flow must make (r0 + one per iteration in
+    settle and U*, one in the full receipt, none in bundle and chain
+    receipt, which reuse the cached U*)."""
+    lat.set_query(psi)
+    t = {}
+    t0 = time.perf_counter()
+    st = lat.settle(dt=1.0, max_iters=12, tol=1e-3)
+    t["settle_ms"] = sync_ms(t0)
+    t0 = time.perf_counter()
+    lat._solve_ustar_device()
+    t["ustar_ms"] = sync_ms(t0)
+    t0 = time.perf_counter()
+    rec = lat.receipt()
+    t["receipt_full_ms"] = sync_ms(t0)
+    t0 = time.perf_counter()
+    bundle = [b["id"] for b in lat.bundle(k=8)]
+    verdict = lat.chain_receipt(list(chain))["verdict"]
+    t["bundle_chain_ms"] = sync_ms(t0)
+    check(np.isfinite(rec["deltaH_total"]) and rec["deltaH_total"] >= 0, "deltaH invalid")
+    check(len(bundle) == 8 and len(set(bundle)) == 8, "bundle ids invalid")
+    return {
+        "ms": t, "deltaH": rec["deltaH_total"], "null_points": len(rec["null_points"]),
+        "bundle": bundle, "state_sig": rec["meta"]["state_sig"], "chain_verdict": verdict,
+        "settle_iters": st["iters"], "ustar_iters": rec["meta"]["ustar_iters"],
+        "applies": (st["iters"] + 1) + (rec["meta"]["ustar_iters"] + 1) + 1,
+        "similarity": rec["meta"]["similarity"],
+        "recall_target": rec["meta"]["similarity_recall_target"],
+        "similarity_info": rec["meta"].get("similarity_info"),
+    }
+
+
+def graph_agreement(g, ref) -> dict:
+    """Rows whose idx equal the reference graph's, and the weights held to
+    rtol 1e-5, atol 1e-6 (tests/test_fast_similarity.py's bar) on the rows
+    whose neighbourhood agrees: a row's capped weights depend on the mutual
+    tests and row sums of its neighbours, so the bar skips rows within two
+    hops (either direction, either graph) of a row whose idx differ; their
+    count and largest weight difference are reported."""
+    differ = ~(g.idx == ref.idx).all(dim=1)
+    near = differ.clone()
+    for _ in range(2):
+        grown = near.clone()
+        for idx in (g.idx.long(), ref.idx.long()):
+            grown |= near[idx].any(dim=1)  # rows that list a marked row
+            grown[idx[near].reshape(-1)] = True  # rows a marked row lists
+        near = grown
+    keep = ~near[:, None] & (g.w > 0) & (ref.w > 0)
+    return {"rows_identical": float((~differ).double().mean()),
+            "rows_within_two_hops": int(near.sum()),
+            "w_within_bar": bool(torch.allclose(g.w[keep], ref.w[keep], rtol=1e-5, atol=1e-6)),
+            "w_max_abs_diff_held": float((g.w[keep] - ref.w[keep]).abs().max()),
+            "w_max_abs_diff_near": float((g.w - ref.w)[near].abs().max()) if bool(near.any()) else 0.0}
+
+
+def fast_stage_ms(Y: torch.Tensor, k: int) -> dict:
+    """The fast build's stages summed over its row blocks, each stage
+    bracketed by CUDA events: the bf16 scan, the candidate top-k (4k a row;
+    its tie check reads one flag to the host), the f32 rescore, the final
+    top-k over the candidates; then `graph_from_topk` once."""
+    n = Y.shape[0]
+    Yn = normalize_rows(Y)
+    Yb = Yn.to(torch.bfloat16)
+    kc = min(4 * k, n - 1)
+    names = ("scan", "candidate_topk", "rescore", "final_topk")
+    ms = dict.fromkeys(names, 0.0)
+    vals = torch.empty((n, k), device=Y.device)
+    idx = torch.empty((n, k), dtype=torch.int32, device=Y.device)
+    for r0 in range(0, n, tgraph.DEFAULT_BLOCK_ROWS):
+        r1 = min(r0 + tgraph.DEFAULT_BLOCK_ROWS, n)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        S = tgraph.scan_bf16(Yb[r0:r1], Yb)
+        rows = torch.arange(r1 - r0, device=Y.device)
+        S[rows, rows + r0] = -torch.inf
+        ev[1].record()
+        cand = tgraph.stable_topk(S, kc)[1]
+        ev[2].record()
+        exact = torch.bmm(Yn[cand], Yn[r0:r1, :, None])[:, :, 0]
+        exact = torch.where(cand == (rows + r0)[:, None], -torch.inf, exact)
+        ev[3].record()
+        v, sel = tgraph.stable_topk(exact, k)
+        vals[r0:r1], idx[r0:r1] = v, torch.gather(cand, 1, sel).to(torch.int32)
+        ev[4].record()
+        ev[4].synchronize()
+        for i, name in enumerate(names):
+            ms[name] += ev[i].elapsed_time(ev[i + 1])
+    t0 = time.perf_counter()
+    graph_from_topk(vals, idx)
+    ms["graph_from_topk"] = sync_ms(t0)
+    return ms
+
+
+def auto_corpus() -> dict:
+    """The service's default request at the corpus tier: `similarity="auto"`
+    at 131072 x 768 x k8 resolves to "fast".  Build, settle, U*, full
+    receipt, bundle and chain receipt with the launch counts set to 0 just
+    before and read just after; the fast graph held to the exact graph of
+    the same run (the recall contract: rows with identical idx >= 0.99, and
+    the weights bar); `"fastest"` built once (the same function off the
+    TPU); `rebuild_graph(similarity="fast")` on the exact lattice gives the
+    auto lattice's graph bit for bit."""
+    n, d, k = CORPUS["n"], CORPUS["d"], CORPUS["k"]
+    Y, psi = data(n, d)
+    t = {}
+    t0 = time.perf_counter()
+    exact = Oscillink(Y, kneighbors=k)
+    t["exact_build_ms"] = sync_ms(t0)
+    exact_run = lattice_flow(exact, psi)
+    t0 = time.perf_counter()
+    Oscillink(Y, kneighbors=k, similarity="auto")  # first fast build: cuBLAS bf16 warm-up
+    t["fast_first_build_ms"] = sync_ms(t0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = Oscillink(Y, kneighbors=k, similarity="auto")
+    t["build_ms"] = sync_ms(t0)
+    run = lattice_flow(lat, psi)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 left on after the fast build")
+    agree = graph_agreement(lat.graph, exact.graph)
+    t0 = time.perf_counter()
+    fastest = Oscillink(Y, kneighbors=k, similarity="fastest")
+    t["fastest_build_ms"] = sync_ms(t0)
+    fastest_same = all(torch.equal(a, b) for a, b in zip(fastest.graph, lat.graph))
+    del fastest
+    stages = fast_stage_ms(lat._Y_dev, k)
+    exact.rebuild_graph(similarity="fast")
+    rebuilt_same = all(torch.equal(a, b) for a, b in zip(exact.graph, lat.graph))
+    rel = abs(run["deltaH"] - exact_run["deltaH"]) / max(abs(exact_run["deltaH"]), 1e-30)
+    emit("auto_corpus", **CORPUS, **t, fast_stages_ms=stages, flow_ms=run["ms"],
+         exact_flow_ms=exact_run["ms"],
+         speedup_build=t["exact_build_ms"] / t["build_ms"], similarity=run["similarity"],
+         recall_target=run["recall_target"], graph_vs_exact=agree,
+         deltaH=run["deltaH"], deltaH_exact=exact_run["deltaH"], deltaH_rel_vs_exact=rel,
+         settle_iters=run["settle_iters"], ustar_iters=run["ustar_iters"],
+         exact_iters=[exact_run["settle_iters"], exact_run["ustar_iters"]],
+         null_points=run["null_points"], bundle_ids=run["bundle"],
+         bundle_ids_exact=exact_run["bundle"], chain_verdict=run["chain_verdict"],
+         launches=counts, operator_applies=run["applies"], max_memory_allocated_bytes=peak,
+         fastest_graph_equals_fast=fastest_same, rebuild_fast_bit_equal=rebuilt_same)
+    check(lat._similarity == "fast" and run["similarity"] == "fast",
+          f"auto resolved to {lat._similarity} at N = {n}")
+    check(run["recall_target"] == 0.99, f"fast recall target {run['recall_target']}")
+    check(agree["rows_identical"] >= 0.99, f"fast vs exact rows identical {agree}")
+    check(agree["w_within_bar"], f"fast vs exact weights beyond the bar: {agree}")
+    check(counts["K1"] == run["applies"],
+          f"auto corpus K1 launches {counts['K1']} != operator applies {run['applies']}")
+    check(fastest_same, "fastest's graph differs from fast's (the same function off the TPU)")
+    check(rebuilt_same, "rebuild_graph(similarity='fast') differs from the auto build")
+    del lat, exact
+    torch.cuda.empty_cache()
+    return {"launches": counts["K1"], "ms": t}
+
+
+def fast_parity() -> dict:
+    """The blocked fast path at 16384 x 768 (OSCILLINK_FAST_SIM_N=8192 makes
+    auto take it) on the card, launch counts set to 0 just before and read
+    just after, against the port on the CPU: idx identical except near-tie
+    slots (`near_tie_witness`); then the CPU lattice on the card's graph:
+    deltaH within 1e-5 relative, identical null count, bundle ids,
+    state_sig and iterations."""
+    n, d, k = FAST_PARITY["n"], FAST_PARITY["d"], FAST_PARITY["k"]
+    Y, psi = data(n, d, seed=1)
+    with env(OSCILLINK_FAST_SIM_N=str(FAST_PARITY["fast_sim_n"])):
+        reset_counts()
+        lat = Oscillink(Y, kneighbors=k, similarity="auto")
+        gpu = lattice_flow(lat, psi)
+        counts = read_counts()
+        cpu_g = build_graph(torch.from_numpy(Y), k, similarity="fast")
+        ties = near_tie_witness(Y, lat.graph.idx.cpu().numpy(), cpu_g.idx.numpy())
+        lat_cpu = Oscillink(Y, kneighbors=k, similarity="auto", device="cpu", graph=lat.graph)
+        cpu = lattice_flow(lat_cpu, psi)
+    rel = abs(gpu["deltaH"] - cpu["deltaH"]) / max(abs(cpu["deltaH"]), 1e-30)
+    emit("fast_parity", **FAST_PARITY, cuda_ms=gpu["ms"], graph_build_cuda_vs_cpu=ties,
+         deltaH_rel=rel, launches=counts, similarity=gpu["similarity"],
+         **{key: gpu[key] for key in ("null_points", "bundle", "state_sig", "settle_iters",
+                                      "ustar_iters")})
+    check(gpu["similarity"] == "fast", f"auto at N = {n} resolved to {gpu['similarity']}")
+    check(ties["max_gap"] <= ties["gap_bound"], f"fast_parity graphs differ beyond rounding: {ties}")
+    check(counts["K1"] == gpu["applies"], f"fast_parity K1 {counts['K1']} != {gpu['applies']}")
+    check(rel <= LATTICE_TOL, f"fast_parity deltaH differs: {rel}")
+    for key in ("null_points", "bundle", "state_sig", "settle_iters", "ustar_iters"):
+        check(gpu[key] == cpu[key], f"fast_parity {key}: cuda {gpu[key]} vs cpu {cpu[key]}")
+    return {"launches": counts["K1"]}
+
+
+def study_corpus(n: int, d: int, seed: int = 0, centres: int = 1024, spread: float = 0.35):
+    """The JAX package's IVF study corpora (benchmarks/
+    probe_ivf_balanced_1m.py:31-41): Gaussian centres, rows = a uniformly
+    drawn centre + spread * noise ("tight": 1024 centres, 0.35; "loose":
+    0.6), made with numpy from the seed."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((centres, d), dtype=np.float32)
+    assign = rng.integers(0, centres, size=n)
+    Y = centers[assign]
+    Y += np.float32(spread) * rng.standard_normal((n, d), dtype=np.float32)
+    m = Y[:32].mean(axis=0)
+    return Y, (m / (np.linalg.norm(m) + 1e-12)).astype(np.float32)
+
+
+def ivf_stage_ms(Y: torch.Tensor, k: int) -> dict:
+    """The IVF build's stages at the lattice's geometry, each timed to a
+    sync: the clusterability pre-gate, the k-means (the Lloyd loop of
+    `ivf_topk`: its bf16 scans and `_lloyd_update`s), the whole of
+    `ivf_topk` (k-means, balance rounds, buckets, per-cluster scan,
+    patches), `_sample_quality` and `graph_from_topk`."""
+    n, d = Y.shape
+    C = 1024
+    P = tivf._round_up(int(2.0 * n / C), 128)
+    t = {}
+    t0 = time.perf_counter()
+    tivf._clusterability(Y)
+    t["clusterability_ms"] = sync_ms(t0)
+    t0 = time.perf_counter()
+    Yn = normalize_rows(Y)
+    Yb = Yn.to(torch.bfloat16)
+    cent = normalize_rows(Yn[:: max(n // C, 1)][:C])
+    for _ in range(6):
+        cent = tivf._lloyd_update(tgraph.scan_bf16(Yb, cent.to(torch.bfloat16)), Yn, cent, C, d)
+    t["kmeans_ms"] = sync_ms(t0)
+    del Yn, Yb, cent
+    t0 = time.perf_counter()
+    vals, idx, ovf, _ = tivf.ivf_topk(Y, k, n_clusters=C, bucket_cap=P, m_probe=8)
+    t["ivf_topk_ms"] = sync_ms(t0)
+    t["scan_ms"] = t["ivf_topk_ms"] - t["kmeans_ms"]
+    t0 = time.perf_counter()
+    tivf._sample_quality(Y, vals, idx, k)
+    t["sample_quality_ms"] = sync_ms(t0)
+    t0 = time.perf_counter()
+    graph_from_topk(vals, idx)
+    t["graph_from_topk_ms"] = sync_ms(t0)
+    t["scan_group_clusters"] = tivf._scan_group_size(C, P, 8 * P)
+    return t
+
+
+def cluster_corpus() -> dict:
+    """The cluster tier: `similarity="auto"` at 524288 x 768 x k8 resolves
+    to "cluster".  On the JAX package's "loose" study corpus (1024 centres,
+    spread 0.6; overflow 0 in its 1M study, benchmarks/ivf_balanced_1m.json)
+    the IVF build must be accepted ("ivf", overflow 0, recall estimate >=
+    0.9 or sim-gap p99 <= 0.01); settle, U*, full receipt, bundle and chain
+    receipt run with the launch counts set to 0 just before and read just
+    after, and the build's stages are timed apart.  Then two builds only:
+    the "tight" study corpus (spread 0.35), reported as the gate decides it
+    (its 1M study recorded 7 overflow rows, and any overflow row sends the
+    build to the fast scan), and an isotropic corpus, which must fall back
+    at the pre-gate."""
+    n, d, k = CLUSTER["n"], CLUSTER["d"], CLUSTER["k"]
+    t0 = time.perf_counter()
+    Y, psi = study_corpus(n, d, centres=CLUSTER["centres"], spread=CLUSTER["spread"])
+    data_s = time.perf_counter() - t0
+    # the stages once before the lattice's build (the first IVF build of the
+    # process) and once after it
+    Yd = torch.from_numpy(Y).cuda()
+    stages_first = ivf_stage_ms(Yd, k)
+    del Yd
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = Oscillink(Y, kneighbors=k, similarity="auto")
+    build_ms = sync_ms(t0)
+    del Y
+    run = lattice_flow(lat, psi)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    info = run["similarity_info"]
+    U = lat.U
+    check(U.shape == (n, d) and bool(np.isfinite(U).all()), "cluster corpus U not finite")
+    del U
+    Yd = lat._Y_dev
+    del lat
+    torch.cuda.empty_cache()
+    stages = ivf_stage_ms(Yd, k)
+    del Yd
+    torch.cuda.empty_cache()
+    emit("cluster_corpus", **CLUSTER, data_s=data_s, build_ms=build_ms,
+         stages_first_ms=stages_first, stages_ms=stages,
+         flow_ms=run["ms"], similarity=run["similarity"], recall_target=run["recall_target"],
+         similarity_info=info, deltaH=run["deltaH"], settle_iters=run["settle_iters"],
+         ustar_iters=run["ustar_iters"], null_points=run["null_points"],
+         bundle_ids=run["bundle"], chain_verdict=run["chain_verdict"], launches=counts,
+         operator_applies=run["applies"], max_memory_allocated_bytes=peak)
+    check(run["similarity"] == "cluster", f"auto at N = {n} resolved to {run['similarity']}")
+    check(info["mode"] == "ivf", f"the loose corpus fell back: {info}")
+    check(info["overflow_patched"] == 0, f"IVF overflow {info['overflow_patched']}")
+    check(info["recall_estimate"] >= 0.9 or info["sim_gap_p99"] <= 0.01, f"IVF quality {info}")
+    check(counts["K1"] == run["applies"],
+          f"cluster corpus K1 launches {counts['K1']} != operator applies {run['applies']}")
+    # the tight study corpus, build only: accepted, or sent to the fast scan
+    # by overflow rows
+    Y, _ = study_corpus(n, d, centres=CLUSTER["centres"], spread=TIGHT_SPREAD)
+    t0 = time.perf_counter()
+    tight = Oscillink(Y, kneighbors=k, similarity="auto")
+    tight_ms = sync_ms(t0)
+    tight_info = tight._similarity_info
+    del tight, Y
+    torch.cuda.empty_cache()
+    emit("cluster_tight", **{**CLUSTER, "spread": TIGHT_SPREAD}, build_ms=tight_ms,
+         similarity_info=tight_info)
+    check(tight_info["mode"] == "ivf" or "overflow" in tight_info["reason"],
+          f"tight corpus: {tight_info}")
+    # the isotropic corpus of the same shape: the pre-gate falls back to the
+    # fast scan without paying the cluster scan
+    Y, _ = data(n, d, seed=2)
+    Yi = torch.from_numpy(Y).cuda()
+    t0 = time.perf_counter()
+    obs, null = (float(v) for v in torch.stack(tivf._clusterability(Yi)).tolist())
+    pregate_ms = sync_ms(t0)
+    del Yi
+    t0 = time.perf_counter()
+    iso = Oscillink(Y, kneighbors=k, similarity="auto")
+    iso_ms = sync_ms(t0)
+    iso_info = iso._similarity_info
+    del iso, Y
+    torch.cuda.empty_cache()
+    emit("cluster_isotropic", n=n, d=d, k=k, build_ms=iso_ms, pregate_ms=pregate_ms,
+         fallback_build_ms=iso_ms - pregate_ms, clusterability=obs, clusterability_null=null,
+         similarity_info=iso_info)
+    check(iso_info["mode"] == "fallback-fast", f"isotropic corpus: {iso_info}")
+    check("clusterability" in iso_info["reason"], f"isotropic fallback reason: {iso_info}")
+    return {"launches": counts["K1"], "build_ms": build_ms}
+
+
+def ivf_parity() -> dict:
+    """The IVF build on the card against the port on the CPU, on a tight
+    corpus of 2048 centres at 65536 x 128 and the default geometry (C =
+    1024, P = 128, m = 8; with 1024 centres 8 rows overflow their buckets
+    in both packages, the JAX package's too, and both fall back):
+    the same info keys and mode, floats within 1e-5, identical idx on >=
+    0.999 of rows, a second card build bit-equal to the first; then the
+    CPU lattice on the card's graph: deltaH within 1e-5 relative."""
+    n, d, k = IVF_PARITY["n"], IVF_PARITY["d"], IVF_PARITY["k"]
+    Y, psi = study_corpus(n, d, seed=3, centres=IVF_PARITY["centres"])
+    Yd = torch.from_numpy(Y).cuda()
+    g, info = tivf.build_graph_ivf(Yd, k)
+    g2, _ = tivf.build_graph_ivf(Yd, k)
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(g, g2))
+    del g2, Yd
+    g_cpu, info_cpu = tivf.build_graph_ivf(torch.from_numpy(Y), k)
+    rows = float((g.idx.cpu() == g_cpu.idx).all(dim=1).double().mean())
+    floats = {key: abs(val - info_cpu[key]) for key, val in info.items()
+              if isinstance(val, float)}
+    with env(OSCILLINK_CLUSTER_SIM_N=str(n)):
+        reset_counts()
+        lat = Oscillink(Y, kneighbors=k, similarity="auto")
+        gpu = lattice_flow(lat, psi)
+        counts = read_counts()
+        graph_same = all(torch.equal(a, b) for a, b in zip(lat.graph, g))
+        lat_cpu = Oscillink(Y, kneighbors=k, similarity="auto", device="cpu", graph=lat.graph)
+        cpu = lattice_flow(lat_cpu, psi)
+    rel = abs(gpu["deltaH"] - cpu["deltaH"]) / max(abs(cpu["deltaH"]), 1e-30)
+    emit("ivf_parity", **IVF_PARITY, info_cuda=info, info_cpu=info_cpu, float_diffs=floats,
+         rows_identical=rows, repeat_bit_equal=repeat_equal, lattice_graph_equal=graph_same,
+         deltaH_rel=rel, launches=counts, similarity=gpu["similarity"],
+         **{key: gpu[key] for key in ("null_points", "bundle", "state_sig", "settle_iters",
+                                      "ustar_iters")})
+    check(info["mode"] == info_cpu["mode"] == "ivf", f"ivf_parity modes {info} vs {info_cpu}")
+    check(list(info) == list(info_cpu), "ivf_parity info keys differ")
+    check(all(v <= 1e-5 for v in floats.values()), f"ivf_parity info floats: {floats}")
+    check(rows >= 0.999, f"ivf_parity rows identical {rows}")
+    check(repeat_equal, "two IVF builds on the card differ")
+    check(graph_same, "the lattice's cluster graph differs from build_graph_ivf's")
+    check(counts["K1"] == gpu["applies"], f"ivf_parity K1 {counts['K1']} != {gpu['applies']}")
+    check(rel <= LATTICE_TOL, f"ivf_parity deltaH differs: {rel}")
+    for key in ("null_points", "bundle", "state_sig", "settle_iters", "ustar_iters"):
+        check(gpu[key] == cpu[key], f"ivf_parity {key}: cuda {gpu[key]} vs cpu {cpu[key]}")
+    return {"launches": counts["K1"]}
+
+
+def seeded_and_state(tmp_dir: str) -> dict:
+    """`neighbor_seed` at N = 8192 (the row-blocked host build): the card
+    and the CPU give identical idx, w and state_sig.  Then on the card
+    `export_state` -> `from_state` and `save_state(npz)` -> `from_npz`:
+    identical state_sig and deltaH within 1e-5 relative of each other and
+    of the CPU's import of the same state."""
+    n, d, k = SEEDED["n"], SEEDED["d"], SEEDED["k"]
+    Y, psi = data(n, d, seed=4)
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = Oscillink(Y, kneighbors=k, neighbor_seed=SEEDED["seed"])
+    build_ms = sync_ms(t0)
+    gpu = lattice_flow(lat, psi)
+    counts = read_counts()
+    cpu_lat = Oscillink(Y, kneighbors=k, neighbor_seed=SEEDED["seed"], device="cpu")
+    cpu = lattice_flow(cpu_lat, psi)
+    same = {name: torch.equal(a.cpu(), b) for name, a, b in
+            zip(("idx", "w", "wn", "sqrt_deg"), lat.graph, cpu_lat.graph)}
+    t0 = time.perf_counter()
+    state = lat.export_state()
+    export_ms = sync_ms(t0)
+    path = os.path.join(tmp_dir, "state.npz")
+    lat.save_state(path, format="npz")
+    t0 = time.perf_counter()
+    imports = {"from_state": Oscillink.from_state(state)}
+    import_ms = sync_ms(t0)
+    imports["from_npz"] = Oscillink.from_npz(path)
+    imports["from_state_cpu"] = Oscillink.from_state(state, device="cpu")
+    imports["from_npz_cpu"] = Oscillink.from_npz(path, device="cpu")
+    runs = {}
+    for name, other in imports.items():
+        other.settle(dt=1.0, max_iters=12, tol=1e-3)
+        rec = other.receipt()
+        runs[name] = {"state_sig": rec["meta"]["state_sig"], "deltaH": rec["deltaH_total"],
+                      "similarity_info": rec["meta"].get("similarity_info")}
+    rels = {name: abs(r["deltaH"] - gpu["deltaH"]) / abs(gpu["deltaH"]) for name, r in runs.items()}
+    emit("seeded_and_state", **SEEDED, build_ms=build_ms, cuda_flow_ms=gpu["ms"],
+         graph_cuda_equals_cpu=same, state_sig=gpu["state_sig"], launches=counts,
+         export_ms=export_ms, import_ms=import_ms, imports=runs, imports_deltaH_rel=rels,
+         exported_keys=sorted(state))
+    check(all(same.values()), f"seeded graph: cuda vs cpu {same}")
+    for key in ("state_sig", "null_points", "bundle", "settle_iters", "ustar_iters"):
+        check(gpu[key] == cpu[key], f"seeded {key}: cuda {gpu[key]} vs cpu {cpu[key]}")
+    check(counts["K1"] == gpu["applies"], f"seeded K1 {counts['K1']} != {gpu['applies']}")
+    # the JSON state carries A_sparse (N > 2048) and installs it; the NPZ
+    # carries no adjacency there, and its import rebuilds the seeded graph,
+    # whose token is the original's
+    check("A_sparse" in state and runs["from_state"]["similarity_info"] == {"mode": "imported"},
+          f"from_state at N = {n}: {runs['from_state']}")
+    for name in ("from_state", "from_npz"):
+        check(runs[name]["state_sig"] == runs[f"{name}_cpu"]["state_sig"],
+              f"{name}: cuda and cpu imports differ in state_sig")
+    check(runs["from_npz"]["state_sig"] == gpu["state_sig"], "from_npz state_sig != the original's")
+    check(max(rels.values()) <= LATTICE_TOL, f"imported deltaH differ: {rels}")
+    return {"launches": counts["K1"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -1459,6 +1971,21 @@ def main() -> int:
     k1_err = max(k1_err, corpus_batch["k1_row"]["max_abs_err"])
     torch.cuda.empty_cache()
 
+    # 7d. similarity="auto", all through K1 with its launches counted from 0
+    # in each phase: the bf16 scan's routes; the corpus tier's default
+    # request (fast) against the exact build; the blocked fast path, the IVF
+    # build and the seeded host build each against the CPU; the cluster tier
+    # (IVF at 524288) and its isotropic fallback; export and import
+    auto_launches = {}
+    scan_routes()
+    auto_launches["auto_corpus"] = auto_corpus()["launches"]
+    auto_launches["fast_parity"] = fast_parity()["launches"]
+    auto_launches["cluster_corpus"] = cluster_corpus()["launches"]
+    auto_launches["ivf_parity"] = ivf_parity()["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        auto_launches["seeded_and_state"] = seeded_and_state(tmp)["launches"]
+    torch.cuda.empty_cache()
+
     # 8. windowed corpus: the full-width windowed main path through K4
     win_launches = {"K4": windowed_corpus()}
 
@@ -1508,6 +2035,7 @@ def main() -> int:
         "ptxas": k1_ptxas(libs["spmv"]["ptxas"]),
         "launches_per_settle": settle_launches,
         "launches_serving": serving,
+        "launches_auto": auto_launches,
         "gather_ceiling_ms": main_row["gather_ceiling_ms"],
         "per_shape": rows + narrow + [corpus_batch["k1_row"]],
     }] + [{

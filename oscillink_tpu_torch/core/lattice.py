@@ -34,10 +34,21 @@ queries, each query stopped at its own count, as the JAX package's vmapped
 solves stop.  Like the JAX package they take no chain prior and no window
 context.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md queue A): the
-seeded host build (``neighbor_seed``), approximate similarity modes,
-``rebuild_graph``, export/import, and the column-chunked and low-memory
-solves.
+Graph builds.  ``similarity`` resolves as the JAX lattice's does
+(``"auto"``: exact up to N = 65536, ``"fast"`` above, ``"cluster"`` from
+N = 500000): the exact and fast scans of `ops.graph.build_graph`, or the
+gated IVF build of `ops.ivf.build_graph_ivf`, whose ``info`` lands in the
+receipt's ``meta.similarity_info``.  ``neighbor_seed`` (without
+``deterministic_k``) takes the seeded host f64 build, NumPy as the JAX
+package's, so both consume the same ``default_rng`` stream.  A stored
+adjacency (``from_state``, ``from_npz``) or a service graph-cache snapshot
+(`_graph_snapshot`, `_install_graph_snapshot`) replaces the build; export
+and import are wire-compatible with the JAX package's, so a state saved by
+either loads in the other with the same ``state_sig``.
+
+Not ported yet (each raises NotImplementedError, see ROADMAP.md queue A):
+the Orbax checkpoint (item 10) and the column-chunked and low-memory solves
+(item 9).
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ from ..ops.graph import (
     SIMILARITY_RECALL as _SIM_RECALL,
     Graph,
     build_graph,
+    graph_from_topk,
     mmr_select,
     normalize_rows,
     resolve_similarity as _resolve_similarity,
@@ -80,6 +92,7 @@ from ..ops.kernels.window_spmv import (
     lowcov_smax_bound,
     right_size_stragglers,
 )
+from ..ops import ivf as _ivf
 from ..ops.path import PathGraph, build_path_graph
 from ..ops.receipts import (
     bundle_scores,
@@ -98,8 +111,10 @@ __all__ = ["OscillinkLattice", "json_line_logger", "compute_graph_token", "compu
 
 # Y-hash sampling threshold (bytes): full hash below, strided row sample above.
 _FULL_HASH_LIMIT = 128 * 1024 * 1024
-
-_QUEUE_A = "not ported to oscillink_tpu_torch yet (ROADMAP.md queue A item {item})"
+# Above this N the seeded host build selects in row blocks.
+_DENSE_LIMIT = 4096
+# Above this N, exports carry the k-sparse pair list in place of the dense A.
+_DENSE_EXPORT_LIMIT = 2048
 
 
 def _env_flag(name: str) -> bool:
@@ -135,6 +150,29 @@ def _locality_order(Y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     inv = torch.zeros(Y.shape[0], dtype=torch.int32, device=Y.device)
     inv[order.long()] = torch.arange(Y.shape[0], dtype=torch.int32, device=Y.device)
     return order, inv
+
+
+def _chain_order(edges: list[tuple[int, int]]) -> list[int]:
+    """The path order of a chain's undirected edges, walked from its
+    lowest end: sorted node ids would build another topology (edges
+    [[2, 5], [2, 9]] of the chain [5, 2, 9] must not become 2-5-9).  A
+    branching or cyclic edge set falls back to its sorted node ids."""
+    adj: dict[int, list[int]] = {}
+    for a, b in edges:
+        adj.setdefault(a, []).append(b)
+        adj.setdefault(b, []).append(a)
+    ends = [v for v, ns in adj.items() if len(ns) == 1]
+    if not ends or any(len(ns) > 2 for ns in adj.values()):
+        return sorted({i for e in edges for i in e})
+    walk = [min(ends)]
+    prev = None
+    while len(walk) <= len(edges):
+        nxt = [x for x in adj[walk[-1]] if x != prev]
+        if not nxt:
+            break
+        prev = walk[-1]
+        walk.append(nxt[0])
+    return walk
 
 
 def compute_graph_token(y_hash: str, k: int, row_cap: float, deterministic: bool, seed) -> str:
@@ -190,14 +228,17 @@ class OscillinkLattice:
         deterministic_k: bool = False,
         neighbor_seed: Optional[int] = None,
         similarity: str = "exact",
+        _defer_graph: bool = False,
         *,
         device: DeviceLike = None,
         graph: Optional[Graph] = None,
     ):
         """``graph``: a mutual-kNN graph already built from these anchors
-        with this k and row cap, e.g. by a lattice on another device.  The
-        lattice takes it, on its own device, in place of building one; the
-        graph token and ``state_sig`` are those of its own build."""
+        with this k, row cap and similarity mode, e.g. by a lattice on
+        another device.  The lattice takes it, on its own device, in place
+        of building one; the graph token and ``state_sig`` are those of its
+        own build.  ``_defer_graph``: build no graph; the caller installs
+        one (`_set_adjacency_dense`, `_install_graph_snapshot`)."""
         if similarity not in {"auto", "exact", "fast", "fastest", "cluster"}:
             raise ValueError("similarity must be 'auto', 'exact', 'fast', 'fastest' or 'cluster'")
         if isinstance(Y, torch.Tensor):
@@ -211,10 +252,8 @@ class OscillinkLattice:
         for name, val in {"lamC": lamC, "lamQ": lamQ}.items():
             if val < 0:
                 raise ValueError(f"{name} must be >= 0")
-        if neighbor_seed is not None and not deterministic_k:
-            raise NotImplementedError(
-                "neighbor_seed (the seeded host f64 build) is " + _QUEUE_A.format(item=8)
-            )
+        if graph is not None and neighbor_seed is not None and not deterministic_k:
+            raise ValueError("graph= cannot stand in for the seeded build of neighbor_seed")
         self.device = resolve_device(device)
 
         self.Y: np.ndarray = Y.astype(np.float32).copy()
@@ -233,7 +272,17 @@ class OscillinkLattice:
         self._logger: Optional[Callable[[str, dict], None]] = None
 
         t0 = time.perf_counter()
-        self._build_graph_device(graph)
+        if _defer_graph:
+            # import path: the caller installs the graph; a build here would
+            # pay the similarity scan only to be discarded
+            self._reset_graph_state()
+            self._graph = None  # type: ignore[assignment]
+            self._n_edges = 0
+            self._graph_token = ""
+            self._similarity_info = {"mode": "imported"}
+            self._similarity = "imported"
+        else:
+            self._build_graph_device(graph)
         self._graph_build_ms = 1000.0 * (time.perf_counter() - t0)
 
         self.B_diag = np.ones(self.N, dtype=np.float32)
@@ -288,14 +337,25 @@ class OscillinkLattice:
         h.update(f"sampled:{stride}:{Y.shape}".encode())
         return h.hexdigest()
 
+    def _reset_graph_state(self) -> None:
+        """Clear what belongs to the installed graph: host mirrors, edge
+        pairs, the signature memo, the window context and the IVF info."""
+        self._similarity_info: Optional[dict] = None
+        self._sig_memo: Optional[str] = None
+        self._host_mirrors: Optional[tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+        self._edge_pairs_cache: Optional[np.ndarray] = None
+        self._window_ctx: Optional[WindowCtx] = None
+        self._window_coverage: Optional[float] = None
+
     def _build_graph_device(self, given: Optional[Graph] = None) -> None:
-        if self._similarity != "exact":
-            raise NotImplementedError(
-                f"similarity={self._similarity!r} is " + _QUEUE_A.format(item=8)
-            )
-        if given is None:
-            g = build_graph(self._Y_dev, self._kneighbors, row_cap=self._row_cap_val)
-        else:
+        self._reset_graph_state()
+        if self._neighbor_seed is not None and not self._deterministic_k:
+            # the seeded tie-break contract (reference graph.py:54-58): f64
+            # jitter below the f32 similarity ulp, so the selection runs on
+            # the host in f64
+            self._build_graph_seeded_host()
+            return
+        if given is not None:
             shape = (self.N, self._kneighbors)
             if any(tuple(t.shape) != shape for t in (given.idx, given.w, given.wn)) or tuple(
                 given.sqrt_deg.shape
@@ -304,20 +364,178 @@ class OscillinkLattice:
             g = type(given)(*(t.to(self.device) for t in given))
             if g.idx.numel() and not (0 <= int(g.idx.min()) and int(g.idx.max()) < self.N):
                 raise ValueError("graph neighbour ids must lie in [0, N)")
+        elif self._similarity == "cluster":
+            # gated IVF (ops/ivf.py), looked up on its module at call time;
+            # its fallback is this module's build_graph in the re-resolved mode
+            g, self._similarity_info = _ivf.build_graph_ivf(
+                self._Y_dev,
+                self._kneighbors,
+                row_cap=self._row_cap_val,
+                fallback_builder=lambda mode: build_graph(
+                    self._Y_dev, self._kneighbors, row_cap=self._row_cap_val, similarity=mode
+                ),
+            )
+        else:
+            g = build_graph(
+                self._Y_dev, self._kneighbors, row_cap=self._row_cap_val,
+                similarity=self._similarity,
+            )
         self._graph = g
         # directed slot count, like the JAX package
         self._n_edges = int(torch.count_nonzero(g.w > 0))
-        self._graph_token = compute_graph_token(
+        token = compute_graph_token(
             self._Y_hash,
             self._kneighbors,
             self._row_cap_val,
             self._deterministic_k,
             self._neighbor_seed,
         )
-        self._sig_memo: Optional[str] = None
-        self._host_mirrors: Optional[tuple[np.ndarray, np.ndarray, np.ndarray]] = None
-        self._edge_pairs_cache: Optional[np.ndarray] = None
+        if self._similarity != "exact":
+            token = hashlib.sha256(f"{token}:{self._similarity}".encode()).hexdigest()
+        self._graph_token = token
         self._maybe_build_window_ctx()
+
+    def _build_graph_seeded_host(self) -> None:
+        """Host f64 build for the seeded-jitter mode (exact reference
+        parity): dense below _DENSE_LIMIT, row-blocked above it.  NumPy as
+        the JAX package's, so it draws the same ``default_rng`` stream."""
+        if self.N > _DENSE_LIMIT:
+            self._build_graph_seeded_host_blocked()
+            return
+        Y = self.Y
+        n = self.N
+        k = self._kneighbors
+        Yn = Y / (np.linalg.norm(Y, axis=1, keepdims=True) + 1e-12)
+        S = (Yn @ Yn.T).astype(np.float64)
+        np.fill_diagonal(S, -np.inf)
+        rng = np.random.default_rng(self._neighbor_seed)
+        S = S + rng.uniform(-1e-8, 1e-8, size=S.shape)
+        idx = np.argpartition(-S, kth=k, axis=1)[:, :k]
+        A = np.zeros((n, n), dtype=np.float32)
+        rows = np.arange(n)[:, None]
+        A[rows, idx] = np.clip(S[rows, idx].astype(np.float32), 0.0, None)
+        M = (A > 0) & (A.T > 0)
+        A = np.maximum(A * M, (A * M).T)
+        sums = A.sum(axis=1, keepdims=True) + 1e-12
+        scale = np.minimum(1.0, self._row_cap_val / sums).astype(np.float32)
+        A = (A * np.sqrt(scale * scale.T)).astype(np.float32)
+        A = 0.5 * (A + A.T)
+        self._set_adjacency_dense(A)
+        # the token of the adjacency itself: a seeded build depends on the
+        # data in a way the input token cannot capture
+        self._graph_token = hashlib.sha256(b"seeded:" + A.tobytes()).hexdigest()
+        self._sig_memo = None
+
+    def _build_graph_seeded_host_blocked(self) -> None:
+        """Row-blocked seeded selection for N > _DENSE_LIMIT: f32 BLAS row
+        blocks cast to f64 plus the seed's jitter rows from one generator
+        consumed in order (``uniform(size=(N, N))`` is row-major, so the
+        blocks replay its stream); `graph_from_topk` then runs on the
+        host too, so the card and the CPU give the same bits.  Above
+        OSCILLINK_SEEDED_MAX_N it refuses."""
+        try:
+            cap = int(os.getenv("OSCILLINK_SEEDED_MAX_N", "262144"))
+        except ValueError:
+            cap = 262144
+        if self.N > cap:
+            raise ValueError(
+                f"neighbor_seed at N={self.N} exceeds OSCILLINK_SEEDED_MAX_N="
+                f"{cap}: the seeded-jitter contract requires a host-side f64 "
+                "O(N^2 D) selection pass. Raise the env cap, drop "
+                "neighbor_seed, or use deterministic_k=True."
+            )
+        n, k = self.N, self._kneighbors
+        Yn = self.Y / (np.linalg.norm(self.Y, axis=1, keepdims=True) + 1e-12)
+        rng = np.random.default_rng(self._neighbor_seed)
+        block = 1024
+        vals = np.empty((n, k), dtype=np.float32)
+        idx = np.empty((n, k), dtype=np.int32)
+        rows_sel = np.arange(block)[:, None]
+        for lo in range(0, n, block):
+            hi = min(lo + block, n)
+            S = (Yn[lo:hi] @ Yn.T).astype(np.float64)
+            S += rng.uniform(-1e-8, 1e-8, size=S.shape)
+            S[np.arange(hi - lo), np.arange(lo, hi)] = -np.inf
+            bi = np.argpartition(-S, kth=k, axis=1)[:, :k]
+            idx[lo:hi] = bi.astype(np.int32)
+            vals[lo:hi] = S[rows_sel[: hi - lo], bi].astype(np.float32)
+        g = graph_from_topk(torch.from_numpy(vals), torch.from_numpy(idx), row_cap=self._row_cap_val)
+        g = Graph(*(t.to(self.device) for t in g))
+        self._graph = g
+        self._n_edges = int(torch.count_nonzero(g.w > 0))
+        self._graph_token = hashlib.sha256(
+            b"seeded-blocked:" + idx.tobytes() + vals.tobytes()
+        ).hexdigest()
+        self._maybe_build_window_ctx()
+
+    def _graph_snapshot(self) -> dict:
+        """Everything a cache hit must restore to serve over this graph (the
+        service graph cache's contract, keys as the JAX package's): the
+        Graph, its token, the resolved similarity mode and info, the edge
+        count and the window context.  The port's solves always run full
+        width, so ``window_fullwidth`` is always True."""
+        return {
+            "graph": self._graph,
+            "token": self._graph_token,
+            "similarity": self._similarity,
+            "similarity_info": self._similarity_info,
+            "n_edges": self._n_edges,
+            "window_ctx": self._window_ctx,
+            "window_coverage": self._window_coverage,
+            "window_fullwidth": True,
+            "kneighbors": self._kneighbors,
+            "row_cap": self._row_cap_val,
+        }
+
+    def _install_graph_snapshot(self, snap: dict) -> None:
+        """Install a `_graph_snapshot` into a ``_defer_graph=True`` lattice:
+        the cache-hit path, which skips the similarity scan and the window
+        plan.  The caller guarantees input equality through its cache key;
+        a snapshot of another k, row cap or row count is refused."""
+        if snap["kneighbors"] != self._kneighbors or snap["row_cap"] != self._row_cap_val:
+            raise ValueError("graph snapshot does not match lattice params")
+        if int(snap["graph"].idx.shape[0]) != self.N:
+            raise ValueError(
+                f"graph snapshot row count {int(snap['graph'].idx.shape[0])}"
+                f" != lattice N {self.N}"
+            )
+        self._reset_graph_state()
+        self._graph = snap["graph"]
+        self._similarity = snap["similarity"]
+        self._similarity_info = snap["similarity_info"]
+        self._graph_token = snap["token"]
+        self._n_edges = int(snap["n_edges"])
+        self._window_ctx = snap["window_ctx"]
+        self._window_coverage = snap["window_coverage"]
+        self._invalidate_cache()
+
+    def _set_adjacency_dense(self, A: np.ndarray) -> None:
+        """Install an explicit dense adjacency (import path and the seeded
+        dense build): the padded k-sparse form, each row's neighbours in
+        ascending id order, and its Laplacian factors, computed in NumPy as
+        the JAX package does."""
+        A = np.asarray(A, dtype=np.float32)
+        ii, jj = np.nonzero(A > 0)  # row-major: ascending ids within a row
+        nnz = np.bincount(ii, minlength=self.N)
+        K = max(1, int(nnz.max()) if nnz.size else 1)
+        slot = np.arange(ii.size) - (np.cumsum(nnz) - nnz)[ii]
+        idx = np.zeros((self.N, K), dtype=np.int32)
+        w = np.zeros((self.N, K), dtype=np.float32)
+        idx[ii, slot] = jj
+        w[ii, slot] = A[ii, jj]
+        deg = w.sum(axis=1)
+        sqrt_deg = np.sqrt(np.maximum(deg, 1e-12)).astype(np.float32)
+        inv = 1.0 / sqrt_deg
+        wn = (w * inv[:, None] * inv[idx]).astype(np.float32)
+        wn = np.where(w > 0, wn, 0.0).astype(np.float32)
+        self._graph = Graph(*(torch.from_numpy(t).to(self.device) for t in (idx, w, wn, sqrt_deg)))
+        self._host_mirrors = (idx, w, sqrt_deg)
+        self._edge_pairs_cache = None
+        self._window_ctx = None
+        self._window_coverage = None
+        self._n_edges = int((w > 0).sum())
+        self._graph_token = hashlib.sha256(b"imported-dense:" + A.tobytes()).hexdigest()
+        self._invalidate_cache()
 
     def _maybe_build_window_ctx(self) -> None:
         """Build the windowed-matvec context when OSCILLINK_WINDOWED_MATVEC
@@ -776,6 +994,13 @@ class OscillinkLattice:
             "edge_density": float(n_edges / max(self.N * (self.N - 1), 1)),
             "similarity": self._similarity,
             "similarity_recall_target": float(_SIM_RECALL.get(self._similarity, 1.0)),
+            # the IVF build's realized mode and quality estimates, or
+            # {"mode": "imported"} for a stored adjacency
+            **(
+                {"similarity_info": self._similarity_info}
+                if self._similarity_info is not None
+                else {}
+            ),
             # the active window precision tier, while a window context is
             # active: tiers other than bf16x3 change the settle numerics
             **({"window_precision": _env_precision()} if self._window_ctx is not None else {}),
@@ -1024,19 +1249,210 @@ class OscillinkLattice:
         self.last_gates = {"iters": iters.tolist(), "res": res.tolist()}
         return G
 
-    def rebuild_graph(self, *args, **kwargs):
-        raise NotImplementedError("rebuild_graph is " + _QUEUE_A.format(item=5))
+    def rebuild_graph(
+        self,
+        *,
+        row_cap_val: Optional[float] = None,
+        kneighbors: Optional[int] = None,
+        deterministic_k: Optional[bool] = None,
+        neighbor_seed: Optional[int] = None,
+        similarity: Optional[str] = None,
+    ) -> None:
+        """Build the graph again with the given parameters changed (the
+        others kept); ``similarity`` resolves as in the constructor."""
+        if similarity is not None:
+            if similarity not in {"auto", "exact", "fast", "fastest", "cluster"}:
+                raise ValueError(
+                    "similarity must be 'auto', 'exact', 'fast', 'fastest' or 'cluster'"
+                )
+            self._similarity = _resolve_similarity(self.N, similarity, allow_cluster=True)
+        if row_cap_val is not None:
+            self._row_cap_val = float(row_cap_val)
+        if kneighbors is not None:
+            self._kneighbors = min(int(kneighbors), max(1, self.N - 1))
+        if deterministic_k is not None:
+            self._deterministic_k = bool(deterministic_k)
+        if neighbor_seed is not None:
+            self._neighbor_seed = neighbor_seed
+        t0 = time.perf_counter()
+        self._build_graph_device()
+        self._graph_build_ms = 1000.0 * (time.perf_counter() - t0)
+        self._invalidate_cache()
+        self._log(
+            "rebuild_graph",
+            {
+                "k": int(self._kneighbors),
+                "row_cap_val": float(self._row_cap_val),
+                "deterministic_k": self._deterministic_k,
+                "neighbor_seed": self._neighbor_seed,
+            },
+        )
 
-    def export_state(self, *args, **kwargs):
-        raise NotImplementedError("export/import is " + _QUEUE_A.format(item=5))
+    # -- export / import --------------------------------------------------
 
-    save_state = export_state
+    def export_state(self, include_graph: bool = True, include_chain: bool = True) -> dict[str, Any]:
+        """The lattice's state as a JSON-ready dict, the JAX package's
+        layout: anchors, query, gates, energy params, graph params, a
+        provenance hash, the adjacency (dense ``A`` up to N = 2048, the
+        sorted nonzero pairs ``A_sparse`` above) and the chain."""
+        from .. import __version__ as pkg_version
+
+        nz = self._edge_pairs()[:2048]
+        h = hashlib.sha256()
+        h.update(self.Y.tobytes())
+        h.update(self.psi.tobytes())
+        h.update(self.B_diag.tobytes())
+        h.update(
+            np.array([self.lamG, self.lamC, self.lamQ, self.lamP], dtype=np.float64).tobytes()
+        )
+        h.update(np.ascontiguousarray(nz).tobytes())
+        state: dict[str, Any] = {
+            "version": str(pkg_version),
+            "shape": [int(self.N), int(self.D)],
+            "params": {
+                "lamG": self.lamG,
+                "lamC": self.lamC,
+                "lamQ": self.lamQ,
+                "lamP": self.lamP,
+            },
+            "Y": self.Y.tolist(),
+            "psi": self.psi.tolist(),
+            "B_diag": self.B_diag.tolist(),
+            "kneighbors": int(self._kneighbors),
+            "deterministic_k": bool(self._deterministic_k),
+            "neighbor_seed": self._neighbor_seed,
+            "provenance": h.hexdigest(),
+        }
+        if include_graph:
+            if self.N <= _DENSE_EXPORT_LIMIT:
+                state["A"] = self.dense_adjacency().tolist()
+            else:
+                pairs = self._edge_pairs()
+                state["A_sparse"] = {
+                    "pairs": pairs.tolist(),
+                    "values": self.dense_values_for_pairs(pairs).tolist(),
+                }
+        if include_chain and self._path is not None:
+            src = self._path.src.cpu().numpy()
+            dst = self._path.dst.cpu().numpy()
+            state["chain_edges"] = [[int(i), int(j)] for i, j in zip(src, dst) if i < j]
+            if self._chain_nodes is not None:
+                state["chain_nodes"] = list(self._chain_nodes)
+        return state
+
+    def dense_values_for_pairs(self, pairs: np.ndarray) -> np.ndarray:
+        """Adjacency values for (i, j) pairs, 0 where there is no edge
+        (sparse export helper)."""
+        idx, w, _ = self._mirrors()
+        ii, kk = np.nonzero(w > 0)
+        keys = ii.astype(np.int64) * self.N + idx[ii, kk].astype(np.int64)
+        order = np.argsort(keys, kind="stable")
+        keys, vals = keys[order], w[ii, kk][order]
+        pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        want = pairs[:, 0] * self.N + pairs[:, 1]
+        out = np.zeros(len(pairs), dtype=np.float32)
+        if keys.size:
+            at = np.minimum(np.searchsorted(keys, want), keys.size - 1)
+            found = keys[at] == want
+            out[found] = vals[at[found]]
+        return out
+
+    def save_state(
+        self,
+        path: str,
+        format: str = "json",
+        include_graph: bool = True,
+        include_chain: bool = True,
+    ) -> None:
+        """Write `export_state` as JSON, or as a compressed NPZ whose arrays
+        are Y, psi, B_diag, A (N <= 2048) and chain_nodes, with the rest as
+        JSON in ``__meta__``."""
+        fmt = format.lower()
+        state = self.export_state(include_graph=include_graph, include_chain=include_chain)
+        if fmt == "json":
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(state, f, sort_keys=True)
+        elif fmt == "npz":
+            arrays: dict[str, np.ndarray] = {
+                "Y": self.Y,
+                "psi": self.psi,
+                "B_diag": self.B_diag,
+            }
+            if include_graph and self.N <= _DENSE_EXPORT_LIMIT:
+                arrays["A"] = self.dense_adjacency()
+            if include_chain and self._chain_nodes is not None:
+                arrays["chain_nodes"] = np.array(self._chain_nodes, dtype=np.int32)
+            meta = {
+                k: v
+                for k, v in state.items()
+                if k not in {"Y", "psi", "B_diag", "A", "A_sparse", "chain_nodes"}
+            }
+            archive: dict[str, Any] = {"__meta__": np.array(json.dumps(meta, sort_keys=True))}
+            archive.update(arrays)
+            np.savez_compressed(path, **archive)
+        else:
+            raise ValueError("format must be 'json' or 'npz'")
 
     @classmethod
-    def from_state(cls, *args, **kwargs):
-        raise NotImplementedError("export/import is " + _QUEUE_A.format(item=5))
+    def from_npz(cls, path: str, *, device: DeviceLike = None) -> "OscillinkLattice":
+        with np.load(path, allow_pickle=False) as data:
+            meta = json.loads(str(data["__meta__"]))
+            state = {
+                **meta,
+                "Y": data["Y"].astype(np.float32).tolist(),
+                "psi": data["psi"].astype(np.float32).tolist(),
+                "B_diag": data["B_diag"].astype(np.float32).tolist(),
+            }
+            if "A" in data.files:
+                state["A"] = data["A"].astype(np.float32).tolist()
+            if "chain_nodes" in data.files:
+                state["chain_nodes"] = data["chain_nodes"].astype(int).tolist()
+        return cls.from_state(state, device=device)
 
-    from_npz = from_state
+    @classmethod
+    def from_state(cls, state: dict[str, Any], *, device: DeviceLike = None) -> "OscillinkLattice":
+        """A lattice from an `export_state` dict (of either package).  A
+        stored adjacency is installed in place of a build; without one the
+        graph is built from Y with the stored graph params."""
+        Y = np.array(state["Y"], dtype=np.float32)
+        params = state.get("params", {})
+        has_adjacency = "A" in state or "A_sparse" in state
+        lat = cls(
+            Y,
+            kneighbors=state.get("kneighbors", 6),
+            lamG=params.get("lamG", 1.0),
+            lamC=params.get("lamC", 0.5),
+            lamQ=params.get("lamQ", 4.0),
+            deterministic_k=state.get("deterministic_k", False),
+            neighbor_seed=state.get("neighbor_seed"),
+            _defer_graph=has_adjacency,
+            device=device,
+        )
+        psi = np.array(state.get("psi", np.zeros(Y.shape[1], dtype=np.float32)), dtype=np.float32)
+        B = np.array(state.get("B_diag", np.ones(Y.shape[0], dtype=np.float32)), dtype=np.float32)
+        lat.set_query(psi, gates=B)
+        if "A" in state:
+            A = np.array(state["A"], dtype=np.float32)
+            if A.shape != (lat.N, lat.N):
+                raise ValueError(f"state A must be [N, N] = [{lat.N}, {lat.N}], got {list(A.shape)}")
+            lat._set_adjacency_dense(A)
+        elif "A_sparse" in state:
+            pairs = np.array(state["A_sparse"]["pairs"], dtype=np.int64).reshape(-1, 2)
+            vals = np.array(state["A_sparse"]["values"], dtype=np.float32)
+            A = np.zeros((lat.N, lat.N), dtype=np.float32)
+            A[pairs[:, 0], pairs[:, 1]] = vals
+            lat._set_adjacency_dense(A)
+        lamP = params.get("lamP", 0.0)
+        if lamP > 0:
+            if "chain_nodes" in state:
+                lat.add_chain(list(map(int, state["chain_nodes"])), lamP=lamP)
+            elif "chain_edges" in state:
+                edges = [tuple(map(int, e[:2])) for e in state["chain_edges"]]
+                if edges:
+                    lat.add_chain(_chain_order(edges), lamP=lamP)
+        if "provenance" in state:
+            lat._imported_provenance = state["provenance"]
+        return lat
 
     # -- callbacks --------------------------------------------------------
 

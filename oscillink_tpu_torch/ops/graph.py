@@ -15,8 +15,11 @@ launches kernel K1 (`ops/kernels/spmv.py`), on a CPU tensor it runs K1's plain
 version.  Similarity is f32 at full precision: `utils.device.resolve_device`
 turns TF32 off on the card.
 
-Only the exact similarity scan is ported so far; the approximate modes
-("fast", "fastest", "cluster") raise NotImplementedError.
+``similarity="fast"`` / ``"fastest"`` take the two-pass scan of
+`_topk_blocked_fast`: a bf16 scan with f32 sums picks 4k candidates a row,
+an exact f32 rescore ranks them.  ``"cluster"`` is the IVF build of
+`ops.ivf.build_graph_ivf`, which the lattice routes; ``build_graph`` refuses
+it as the JAX package does.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ __all__ = [
     "resolve_similarity",
     "stable_topk",
     "SIMILARITY_RECALL",
+    "FAST_SIMILARITY_N",
+    "CLUSTER_SIMILARITY_N",
 ]
 
 DEFAULT_BLOCK_ROWS = 1024
@@ -51,11 +56,6 @@ SIMILARITY_RECALL = {"exact": 1.0, "fast": 0.99, "fastest": 0.95, "cluster": 0.9
 # candidates fetched past k by `stable_topk`; a row whose last candidate
 # still ties the k-th value is re-ranked by a full stable sort
 _TOPK_SLACK = 8
-
-_NOT_PORTED = (
-    "similarity={mode!r} is not ported to oscillink_tpu_torch yet (ROADMAP.md "
-    "queue A item 8: large-N and approximate builds); use similarity='exact'"
-)
 
 
 def resolve_similarity(n: int, mode: str, *, allow_cluster: bool = False) -> str:
@@ -165,6 +165,53 @@ def _topk_blocked(Yn: torch.Tensor, k: int, block_rows: int):
     return vals, idx
 
 
+def scan_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 similarities ``a @ b.T`` of two bf16 tensors: the exact products
+    of the bf16 values summed in f32, as the JAX package's
+    ``jnp.dot(bf16, bf16, preferred_element_type=f32)``.  Never a bf16
+    output: its rounding flattens the candidate ranking into ties.  The
+    card takes cuBLAS's bf16 GEMM with an f32 output (the fastest of the
+    routes `chip_smoke.py` times: TF32 of the bf16 values and f32 compute
+    the same function slower); the CPU an f32 matmul of the bf16 values."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b.T, out_dtype=torch.float32)
+    return a.float() @ b.float().T
+
+
+def _topk_blocked_fast(Yn: torch.Tensor, k: int, block_rows: int):
+    """Two-pass blocked top-k of every row of ``Yn`` against all rows, self
+    excluded: a bf16 scan (`scan_bf16`) of each row block against all of
+    Yn picks 4k candidates (kc = min(4k, N - 1)), an exact
+    f32 rescore of the candidates ranks them, and a stable top-k over the
+    candidate positions keeps k.  Selected weights are exact f32
+    similarities.
+
+    The JAX package picks the candidates with ``lax.approx_max_k``, which
+    off the TPU lowers to an exact top-k; `stable_topk` is that top-k here,
+    on both devices, so ``"fast"`` (recall target 0.99) and ``"fastest"``
+    (0.95) compute the same function.  The candidate order is (bf16-scan
+    value desc, index asc) and the final top-k is stable in candidate
+    position, as ``lax.top_k`` is."""
+    n = Yn.shape[0]
+    kc = min(4 * k, n - 1)  # the JAX package's overscan of 4
+    Yb = Yn.to(torch.bfloat16)
+    vals = torch.empty((n, k), dtype=torch.float32, device=Yn.device)
+    idx = torch.empty((n, k), dtype=torch.int32, device=Yn.device)
+    for r0 in range(0, n, block_rows):
+        r1 = min(r0 + block_rows, n)
+        S = scan_bf16(Yb[r0:r1], Yb)  # [B, N] f32
+        rows = torch.arange(r1 - r0, device=Yn.device)
+        S[rows, rows + r0] = -torch.inf
+        cand = stable_topk(S, kc)[1]  # [B, kc] int64
+        del S
+        exact = torch.bmm(Yn[cand], Yn[r0:r1, :, None])[:, :, 0]  # [B, kc] f32
+        exact = torch.where(cand == (rows + r0)[:, None], -torch.inf, exact)
+        v, sel = stable_topk(exact, k)
+        vals[r0:r1] = v
+        idx[r0:r1] = torch.gather(cand, 1, sel).to(torch.int32)
+    return vals, idx
+
+
 def build_graph(
     Y: torch.Tensor,
     k: int,
@@ -178,19 +225,26 @@ def build_graph(
     """Build the mutual-kNN graph on Y's device. ``k`` must be pre-clamped
     to [1, N-1].  ``jitter`` is an optional [N, N] tie-break perturbation
     added to the similarities (the reference's seed mode); it takes the
-    dense path whatever N.  Only ``similarity="exact"`` (or an ``"auto"``
-    that resolves to it) is ported."""
+    dense path whatever N.  ``similarity="fast"`` / ``"fastest"`` take the
+    two-pass scan (`_topk_blocked_fast`) on the blocked path; ``"auto"``
+    resolves by N (`resolve_similarity`)."""
     n = Y.shape[0]
     similarity = resolve_similarity(n, similarity)
-    if similarity in ("fast", "fastest", "cluster"):
-        raise NotImplementedError(_NOT_PORTED.format(mode=similarity))
-    if similarity != "exact":
+    if similarity == "cluster":
+        raise ValueError(
+            "similarity='cluster' (IVF) is served by ops.ivf.build_graph_ivf "
+            "(or OscillinkLattice, which routes it); build_graph has no "
+            "cluster path"
+        )
+    if similarity not in ("exact", "fast", "fastest"):
         raise ValueError(f"unknown similarity mode {similarity!r}")
     Yn = normalize_rows(Y.to(torch.float32))
     if jitter is not None or n <= dense_limit:
         vals, idx = _topk_dense(Yn, k, jitter)
-    else:
+    elif similarity == "exact":
         vals, idx = _topk_blocked(Yn, k, block_rows)
+    else:
+        vals, idx = _topk_blocked_fast(Yn, k, block_rows)
     return graph_from_topk(vals, idx, row_cap=row_cap)
 
 

@@ -121,17 +121,36 @@ def test_resolve_similarity_matches_jax(n):
         )
 
 
+def _jax_graph_mode(Y, k, mode, **kw):
+    return jax.jit(lambda Y: jgraph.build_graph(Y, k, similarity=mode, **kw))(jnp.asarray(Y))
+
+
 @pytest.mark.parametrize("mode", ["fast", "fastest", "cluster"])
-def test_approximate_modes_raise_not_implemented(mode):
-    Y = torch.randn(20, 8)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        tgraph.build_graph(Y, 3, similarity=mode)
+def test_approximate_modes_build_as_jax(mode):
+    # fast and fastest take the two-pass scan on the blocked path; cluster is
+    # the lattice's IVF route, which build_graph refuses in both packages
+    Y = np.random.default_rng(11).standard_normal((300, 16)).astype(np.float32)
+    kw = dict(dense_limit=64, block_rows=128)
+    if mode == "cluster":
+        with pytest.raises(ValueError, match="build_graph_ivf"):
+            tgraph.build_graph(torch.from_numpy(Y), 6, similarity=mode, **kw)
+        with pytest.raises(ValueError, match="build_graph_ivf"):
+            jgraph.build_graph(jnp.asarray(Y), 6, similarity=mode, **kw)
+        return
+    gt = tgraph.build_graph(torch.from_numpy(Y), 6, similarity=mode, **kw)
+    _assert_same_graph(_jax_graph_mode(Y, 6, mode, **kw), gt)  # idx identical, w 1e-6
 
 
-def test_auto_above_fast_threshold_raises(monkeypatch):
+def test_auto_above_fast_threshold_builds_fast(monkeypatch):
     monkeypatch.setenv("OSCILLINK_FAST_SIM_N", "10")
-    with pytest.raises(NotImplementedError, match="'fast'"):
-        tgraph.build_graph(torch.randn(20, 8), 3, similarity="auto")
+    Y = np.random.default_rng(12).standard_normal((300, 16)).astype(np.float32)
+    kw = dict(dense_limit=64, block_rows=128)
+    assert tgraph.resolve_similarity(300, "auto") == "fast"
+    ga = tgraph.build_graph(torch.from_numpy(Y), 5, similarity="auto", **kw)
+    gf = tgraph.build_graph(torch.from_numpy(Y), 5, similarity="fast", **kw)
+    for name in ("idx", "w", "wn", "sqrt_deg"):
+        assert torch.equal(getattr(ga, name), getattr(gf, name)), name
+    _assert_same_graph(_jax_graph_mode(Y, 5, "auto", **kw), ga)
     with pytest.raises(ValueError, match="unknown similarity"):
         tgraph.build_graph(torch.randn(20, 8), 3, similarity="exactt")
 
