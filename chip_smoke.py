@@ -41,7 +41,22 @@ through the public entry points:
   (8192 x 128) each against the port's CPU path; the cluster tier at 524288
   x 768 x k8, accepted as IVF on the JAX package's loose study corpus, its
   tight corpus and an isotropic one built too; export and import (JSON
-  state, NPZ) on the card against the CPU.
+  state, NPZ) on the card against the CPU;
+* the low-memory and column-chunked solves at the JAX package's 1M study
+  shape (``million``: 1,000,000 x 768 x k8 on its loose IVF corpus, auto
+  resolving to an accepted IVF build): the full flow full width, then
+  settle, U* and the full receipt on the same graph under
+  ``OSCILLINK_COL_CHUNKS`` = 4 and 8, held to the full-width run with the
+  JAX package's bars; the classic and the low-memory CG on the same
+  inputs (identical iterations, U within 1e-6 of max|U|); every step's
+  peak under the working-set model's estimate, and its K1 launches equal
+  to its operator applies; K1 against plain at the chunk widths 192 and
+  96;
+* the windowed tier under column chunks (``windowed_chunked``): the
+  locality-ordered corpus at c = 2 (K4 fused, K3 unfused, at 384 columns)
+  and c = 8 (K2 and its epilogue at 96) against the full-width windowed
+  run, the kernels against their plain versions at those widths, and the
+  straggler corpus card against CPU at each.
 
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
@@ -71,7 +86,9 @@ import torch
 
 from oscillink_tpu_torch import Oscillink, compute_diffusion_gates
 from oscillink_tpu_torch.benchmarks import probe_bucket_gather as probe
+from oscillink_tpu_torch.core import lattice as tlattice
 from oscillink_tpu_torch.core.lattice import _locality_order
+from oscillink_tpu_torch.models import coherence as tcoh
 from oscillink_tpu_torch.models import ragged as tragged
 from oscillink_tpu_torch.models.batched import union_graph
 from oscillink_tpu_torch.models.oneshot import settle_receipt_light
@@ -154,6 +171,18 @@ CLUSTER = dict(n=524288, d=768, k=8, centres=1024, spread=0.6)
 TIGHT_SPREAD = 0.35
 IVF_PARITY = dict(n=65536, d=128, k=8, centres=2048)
 SEEDED = dict(n=8192, d=128, k=8, seed=3)
+# the low-memory and column-chunked solves: the JAX package's 1M IVF study
+# shape on its "loose" corpus (benchmarks/ivf_balanced_1m.json's config),
+# full width and at the chunk counts the 16 GB chip needed; the windowed
+# tier chunked on the locality-ordered corpus and the straggler corpus
+MILLION = dict(n=1_000_000, d=768, k=8, centres=1024, spread=0.6)
+MILLION_CHUNKS = (4, 8)
+FORM_TURNS = 3
+FORM_TOL = 1e-6  # classic vs low-memory CG: U relative to max|U|
+CHUNK_DH_REL, CHUNK_SUM_REL = 1e-5, 1e-4  # tests/test_chunked_receipts.py:65-91
+WINDOWED_CHUNK_TOL = 5e-4  # U*, relative to max|U| (tests/test_window_spmv.py:189)
+# (OSCILLINK_COL_CHUNKS, OSCILLINK_WINDOWED_FUSED, the kernel the chunk width takes)
+WINDOWED_CHUNKED = (("2", "1", "K4"), ("2", "0", "K3"), ("8", "1", "K2"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1825,6 +1854,456 @@ def seeded_and_state(tmp_dir: str) -> dict:
     return {"launches": counts["K1"]}
 
 
+# -- the low-memory and column-chunked solves ---------------------------------
+
+
+CHUNK_SOLVES = ("solve_stationary", "settle_step", "solve_stationary_windowed",
+                "solve_stationary_windowed_fused", "settle_step_windowed",
+                "settle_step_windowed_fused")
+
+
+@contextlib.contextmanager
+def chunk_iters():
+    """Record the iteration count of every per-chunk solve: the chunked
+    loops of `models.coherence` look their per-chunk solve up by name at
+    each call, so wrapping those names sees each chunk (and nothing of a
+    full-width solve, which the lattice calls through its own names)."""
+    saved = {name: getattr(tcoh, name) for name in CHUNK_SOLVES}
+    seen: list = []
+
+    def wrap(fn):
+        def solve(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.append(out[1])
+            return out
+        return solve
+
+    for name, fn in saved.items():
+        setattr(tcoh, name, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(tcoh, name, fn)
+
+
+def measured_step(fn) -> dict:
+    """``fn`` run to a sync with the launch counts set to 0 and the peak
+    counter reset just before: its ms, the per-chunk iterations it made,
+    the bytes allocated before it and its ``max_memory_allocated``, and the
+    launches it made."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    with chunk_iters() as chunks:
+        t0 = time.perf_counter()
+        out = fn()
+        ms = sync_ms(t0)
+    return {"out": out, "ms": ms, "chunk_iters": list(chunks), "before": before,
+            "peak": torch.cuda.max_memory_allocated(),
+            "peak_reserved": torch.cuda.max_memory_reserved(), "launches": read_counts()}
+
+
+def solve_steps(lat: Oscillink, kernel: str = "K1") -> dict:
+    """Settle, U* and the full receipt on a built lattice, each a
+    `measured_step`; each solve's ``kernel`` launches must equal its
+    operator applies (r0 + one an iteration, summed over its chunks) and
+    the receipt's K1 launches its column chunks.  Returns the steps and
+    the receipt."""
+    resident = lat._resident_blocks()
+    settle = measured_step(lambda: lat.settle(dt=1.0, max_iters=12, tol=1e-3))
+    settle.update(iters=lat.last["iters"], resident=resident)
+    resident = lat._resident_blocks()
+    ustar = measured_step(lambda: lat._solve_ustar_device())
+    ustar.update(iters=lat.last_ustar["iters"], resident=resident)
+    resident = lat._resident_blocks()
+    receipt = measured_step(lat.receipt)
+    receipt["resident"] = resident
+    rec = receipt.pop("out")
+    for name, step in (("settle", settle), ("ustar", ustar)):
+        step.pop("out")
+        its = step["chunk_iters"] or [step["iters"]]
+        step["applies"] = sum(it + 1 for it in its)
+        check(max(its) == step["iters"], f"{name}: chunk iterations {its} vs {step['iters']}")
+        check(step["launches"][kernel] == step["applies"],
+              f"{name}: {kernel} launches {step['launches'][kernel]} != operator applies "
+              f"{step['applies']} (chunks {step['chunk_iters']})")
+    check(rec["meta"]["ustar_cached"], "the receipt solved U* again")
+    check(rec["meta"]["ustar_iters"] == ustar["iters"] and rec["cg_iters"] == settle["iters"],
+          "the receipt's iterations are not the maxima over chunks")
+    cc = lat._auto_col_chunks()
+    check(receipt["launches"]["K1"] == cc,
+          f"receipt: K1 launches {receipt['launches']['K1']} != its {cc} column chunks")
+    return {"settle": settle, "ustar": ustar, "receipt": receipt, "rec": rec}
+
+
+def receipt_values(rec: dict) -> dict:
+    return {"deltaH": rec["deltaH_total"], "coh_drop_sum": rec["coh_drop_sum"],
+            "anchor_pen_sum": rec["anchor_pen_sum"], "query_term_sum": rec["query_term_sum"],
+            "null_points": len(rec["null_points"])}
+
+
+def hold_chunked_receipt(tag: str, got: dict, ref: dict) -> dict:
+    """The JAX package's bars for a chunked run against the full-width one
+    (tests/test_chunked_receipts.py:65-91)."""
+    rel = abs(got["deltaH"] - ref["deltaH"]) / max(abs(ref["deltaH"]), 1e-30)
+    check(rel <= CHUNK_DH_REL, f"{tag}: deltaH differs from full width by {rel}")
+    for key in ("coh_drop_sum", "anchor_pen_sum", "query_term_sum"):
+        diff = abs(got[key] - ref[key])
+        check(diff <= max(CHUNK_SUM_REL * abs(ref[key]), CHUNK_SUM_REL),
+              f"{tag}: {key} {got[key]} vs full width {ref[key]}")
+    check(got["null_points"] == ref["null_points"], f"{tag}: null points differ")
+    return {"deltaH_rel": rel}
+
+
+def step_row(step: dict, block: int) -> dict:
+    """What a step reports: ms, iterations, launches, peak GB and its live
+    blocks (the peak less what was allocated when it started, in [N, D]
+    blocks)."""
+    out = {key: step[key] for key in ("ms", "chunk_iters", "launches") if key in step}
+    for key in ("iters", "applies", "resident"):
+        if key in step:
+            out[key] = step[key]
+    out.update(peak_gb=step["peak"] / 1e9, before_gb=step["before"] / 1e9,
+               peak_reserved_gb=step["peak_reserved"] / 1e9,
+               live_blocks=(step["peak"] - step["before"]) / block)
+    return out
+
+
+def model_check(checks: list, tag: str, n: int, d: int, k: int, route: str, resident: int,
+                col_chunks: int, step: dict, donated: bool = False,
+                form: str | None = None) -> None:
+    """The working-set model's estimate for a run configuration, with the
+    full-width blocks held when it ran (the lattice's `_resident_blocks`
+    and any the script holds) and the CG form it ran in (None: the one the
+    lattice picked), must be at least its measured peak; recorded now,
+    held at the end of the phase."""
+    est = tlattice.working_set_bytes(n, d, k, route, resident, col_chunks, donated, form)
+    checks.append({"tag": tag, "route": route, "resident": resident, "col_chunks": col_chunks,
+                   "donated": donated, "form": form, "estimate_gb": est / 1e9,
+                   "peak_gb": step["peak"] / 1e9, "ok": est >= step["peak"]})
+
+
+def first_chunked_n(d: int, k: int, capacity: int, routes: list) -> int:
+    """The least N (to 1024 rows) at which `auto_col_chunks` takes c > 1."""
+    lo, hi = 1024, 1 << 28
+    while hi - lo > 1024:
+        mid = (lo + hi) // 2
+        if tlattice.auto_col_chunks(mid, d, k, capacity, routes) > 1:
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
+def model_decisions(lat: Oscillink, capacity: int) -> dict:
+    """The models' decisions at this lattice's size on this card, and what
+    the card holds outside the caching allocator (the CUDA context)."""
+    n, d, k = lat.N, lat.D, lat._kneighbors
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return {
+        "total_memory": capacity,
+        "outside_allocator_bytes": total - free - torch.cuda.memory_reserved(),
+        "col_chunks": lat._auto_col_chunks(),
+        "col_chunks_gather_settle": lat._auto_col_chunks_gather(2),
+        "col_chunks_gather_ustar": lat._auto_col_chunks_gather(1),
+        "lowmem_solve_bytes": tcoh.LOWMEM_SOLVE_BYTES,
+        "lowmem_at_this_n": tcoh._pick_cg(lat._Y_dev) is tcoh.cg_solve_lowmem,
+        # the gather solves with Y, U and the U* cache held, the most the
+        # lattice holds beside them
+        "first_chunked_n_gather": first_chunked_n(d, k, capacity, [("settle", 3), ("ustar", 3)]),
+        "first_chunked_n_receipt": first_chunked_n(d, k, capacity, [("receipt", 3)]),
+        "n": n,
+    }
+
+
+def cg_form(lat: Oscillink, form: str, fn):
+    """``fn`` with the solves' CG form forced: "classic" or "lowmem"."""
+    saved = tcoh.LOWMEM_SOLVE_BYTES
+    tcoh.LOWMEM_SOLVE_BYTES = 0 if form == "lowmem" else 1 << 62
+    try:
+        return fn()
+    finally:
+        tcoh.LOWMEM_SOLVE_BYTES = saved
+
+
+def million() -> dict:
+    """The JAX package's 1M study shape: 1,000,000 x 768 x k8 on the loose
+    IVF study corpus.  ``similarity="auto"`` must resolve to "cluster" and
+    the IVF build be accepted with overflow 0.  The whole flow full width
+    (settle, U*, full receipt, bundle, chain receipt), then settle, U* and
+    the full receipt again on the same graph from the same start under
+    OSCILLINK_COL_CHUNKS = 4 and 8, each held to the full-width run; then
+    the classic and the low-memory CG on the same inputs (identical
+    iterations, U within FORM_TOL of max|U|; U* timed in turns).  K1's
+    launches are counted from 0 before each step and must equal its
+    operator applies; every step's peak must lie under the working-set
+    model's estimate.  Last, K1 against its plain version at the chunk
+    widths on this graph."""
+    n, d, k = MILLION["n"], MILLION["d"], MILLION["k"]
+    block = n * d * 4
+    t0 = time.perf_counter()
+    Y, psi = study_corpus(n, d, centres=MILLION["centres"], spread=MILLION["spread"])
+    data_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = Oscillink(Y, kneighbors=k, similarity="auto")
+    build_ms = sync_ms(t0)
+    del Y
+    lat.set_query(psi)
+    info = lat._similarity_info
+    check(lat._similarity == "cluster", f"auto at N = {n} resolved to {lat._similarity}")
+    check(info["mode"] == "ivf" and info["overflow_patched"] == 0, f"1M IVF build: {info}")
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    decisions = model_decisions(lat, capacity)
+    checks: list = []
+    cc0 = lat._auto_col_chunks()
+    full = solve_steps(lat)
+    t0 = time.perf_counter()
+    bundle = [b["id"] for b in lat.bundle(k=8)]
+    chain = lat.chain_receipt([2, 5, 7, 9])
+    bundle_chain_ms = sync_ms(t0)
+    ref = receipt_values(full["rec"])
+    emit("million_full", **MILLION, data_s=data_s, build_ms=build_ms, similarity_info=info,
+         decisions=decisions, bundle_chain_ms=bundle_chain_ms, receipt_values=ref,
+         **{key: step_row(full[key], block) for key in ("settle", "ustar", "receipt")})
+    check(lat._U_dev.shape == (n, d) and bool(torch.isfinite(lat._U_dev).all()),
+          "1M U not finite")
+    check(np.isfinite(ref["deltaH"]) and ref["deltaH"] >= 0, "1M deltaH invalid")
+    check(len(bundle) == 8 and len(set(bundle)) == 8, "1M bundle ids invalid")
+    for route in ("settle", "ustar", "receipt"):
+        model_check(checks, f"full_{route}", n, d, k, route, full[route]["resident"], cc0,
+                    full[route])
+    runs = {"full": {key: step_row(full[key], block) for key in ("settle", "ustar", "receipt")}}
+    runs["full"].update(receipt_values=ref, bundle_ids=bundle, bundle_chain_ms=bundle_chain_ms,
+                        chain_verdict=chain["verdict"], col_chunks=cc0)
+    # the chunked runs on the same graph, U reset to the fresh lattice's Y
+    for c in MILLION_CHUNKS:
+        lat._U_dev = lat._Y_dev
+        lat._invalidate_cache()
+        with env(OSCILLINK_COL_CHUNKS=str(c)):
+            steps = solve_steps(lat)
+            ids = [b["id"] for b in lat.bundle(k=8)]
+        got = receipt_values(steps["rec"])
+        for route in ("settle", "ustar", "receipt"):
+            model_check(checks, f"c{c}_{route}", n, d, k, route, steps[route]["resident"], c,
+                        steps[route])
+        runs[f"c{c}"] = {key: step_row(steps[key], block) for key in ("settle", "ustar", "receipt")}
+        runs[f"c{c}"].update(receipt_values=got, bundle_ids=ids)
+        emit("million_chunked", col_chunks=c, **runs[f"c{c}"])
+        runs[f"c{c}"].update(hold_chunked_receipt(f"million c={c}", got, ref))
+        check(ids == bundle, f"million c={c}: bundle ids {ids} vs full width {bundle}")
+        del steps
+    # the two CG forms on the same inputs: the settle from the fresh start
+    # (U is Y), the settle from a settled U (which the low-memory form then
+    # writes in place) and U*; the classic result is held while the
+    # low-memory form runs, one more resident block
+    U_start = lat._U_dev  # settled, by the c = 8 run
+    lat._invalidate_cache()
+    forms: dict = {"classic": {}, "lowmem": {}}
+    form_errs = {}
+    # resident [N, D] blocks of each measurement: Y and the held start U;
+    # the settled settle's own U copy
+    base = {"settle_fresh": 2, "settle_settled": 3, "ustar": 2}
+    for key, res in base.items():
+        vals = {}
+        for form in ("classic", "lowmem"):
+            if key == "settle_fresh":
+                lat._U_dev = lat._Y_dev
+            elif key == "settle_settled":
+                lat._U_dev = U_start.clone()  # held by the lattice alone: the donated route
+            else:
+                lat._U_dev = U_start
+            if key == "ustar":
+                st = cg_form(lat, form, lambda: measured_step(
+                    lambda: lat._solve_ustar_device(use_cache=False)))
+                st["iters"] = lat.last_ustar["iters"]
+                vals[form] = st.pop("out")
+            else:
+                st = cg_form(lat, form, lambda: measured_step(
+                    lambda: lat.settle(dt=1.0, max_iters=12, tol=1e-3)))
+                st["iters"] = lat.last["iters"]
+                st.pop("out")
+                vals[form] = lat._U_dev
+            lat._U_dev = U_start
+            check(st["launches"]["K1"] == st["iters"] + 1,
+                  f"{form} {key}: K1 launches {st['launches']['K1']} != {st['iters']} + 1")
+            donated = key == "settle_settled" and form == "lowmem"
+            model_check(checks, f"{form}_{key}", n, d, k, "ustar" if key == "ustar" else "settle",
+                        res + (form == "lowmem"), 1, st, donated=donated, form=form)
+            forms[form][key] = st
+        scale = float(vals["classic"].abs().max())
+        form_errs[key] = float((vals["classic"] - vals["lowmem"]).abs().max()) / scale
+        del vals
+        emit("million_forms", step=key, rel_err=form_errs[key],
+             **{form: step_row(forms[form][key], block) for form in forms})
+        check(forms["classic"][key]["iters"] == forms["lowmem"][key]["iters"],
+              f"{key}: classic {forms['classic'][key]['iters']} vs low-memory "
+              f"{forms['lowmem'][key]['iters']} iterations")
+        check(form_errs[key] <= FORM_TOL, f"{key}: classic vs low-memory U {form_errs[key]}")
+    # U* in turns, classic and low-memory, on the same inputs
+    lat._invalidate_cache()
+    turn_ms: dict = {"classic": [], "lowmem": []}
+    for _ in range(FORM_TURNS):
+        for form in ("classic", "lowmem"):
+            t0 = time.perf_counter()
+            cg_form(lat, form, lambda: lat._solve_ustar_device(use_cache=False))
+            turn_ms[form].append(sync_ms(t0))
+    # K1 against its plain version at the chunk widths on this graph
+    g = lat.graph
+    del lat, U_start
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k1_rows = []
+    for c in MILLION_CHUNKS:
+        X = torch.randn(n, d // c, generator=gen, device="cuda")
+        k1_rows.append(k1_case({"case": f"million_chunk_c{c}"}, g, X))
+        del X
+    # K1 at full width on this graph: its plan's slab width beside S = D
+    X = torch.randn(n, d, generator=gen, device="cuda")
+    k1_full = {"slab_cols": k1_slab_cols(n, d, k), **turns_ms({
+        "plan": lambda: spmv.lap_matvec_cuda(g.idx, g.wn, X),
+        "full_width": lambda: spmv.lap_matvec_cuda(g.idx, g.wn, X, slab_cols=d),
+    }, 5)}
+    del X, g
+    torch.cuda.empty_cache()
+    emit("million", **MILLION, decisions=decisions, form_rel_err=form_errs,
+         ustar_turns_ms=turn_ms,
+         ustar_median_ms_in_turns={form: statistics.median(turn_ms[form]) for form in turn_ms},
+         model_checks=checks, k1_chunk_widths=k1_rows, k1_full_width_ms=k1_full)
+    for row in checks:
+        check(row["ok"], f"working-set model under the measured peak: {row}")
+    launches = {f"{run}_{key}": runs[run][key]["launches"]["K1"]
+                for run in runs for key in ("settle", "ustar", "receipt")}
+    return {"launches": launches, "k1_rows": k1_rows}
+
+
+def window_chunk_kernels(lat: Oscillink, widths: dict) -> list:
+    """K4 (fused, at a multiple of 128), K3 and K2 (K2 alone, without its
+    epilogue) against their gather-form plain versions on a lattice's
+    window context at the chunk widths ``widths`` ({kernel: D/c}), timed
+    beside the plain version, with their bounds."""
+    ctx = lat._window_ctx
+    plan, W, s_max = ctx.plan, ctx.W, ctx.s_max
+    R = plan.n_pad // plan.n_blocks
+    cnt = plan.strag_cnt.cpu().numpy()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for key, width in widths.items():
+        X = tw.pad_rows(torch.randn(lat.N, width, generator=gen, device="cuda"), plan.n_pad)
+        g = 1.5 + torch.rand(plan.n_pad, 1, generator=gen, device="cuda")
+        calls = {
+            "K2": (lambda: (tw.window_spmv_cuda(plan, X, W, R, "bf16x3"),),
+                   lambda: (tw.window_spmv_gather_ref(plan, X, W, R, "bf16x3"),)),
+            "K3": (lambda: (tw.window_spmv3_cuda(plan, X, W, R, s_max, "bf16x3"),),
+                   lambda: (tw.window_spmv3_gather_ref(plan, X, W, R, s_max, "bf16x3"),)),
+            "K4": (lambda: tw.window_spmv3f_cuda(plan, X, g, W, R, s_max, "bf16x3"),
+                   lambda: tw.window_spmv3f_gather_ref(plan, X, g, W, R, s_max, "bf16x3")),
+        }[key]
+        out, ref = calls[0](), calls[1]()
+        torch.cuda.synchronize()
+        errs = []
+        for o, r, tol in zip(out, ref, (GATHER_TOL, GATHER_PAP_TOL)):
+            err = float((o - r).abs().max())
+            check(bool(torch.isfinite(o).all()) and err <= tol * float(r.abs().max()),
+                  f"{key} at D = {width} != its gather plain version: {err}")
+            errs.append(err)
+        case = {"plan": plan, "Xpad": X, "nnz": {
+            "strag_w": int(torch.count_nonzero(plan.strag_w)),
+            "wnl": int(torch.count_nonzero(plan.wnl)),
+            "strag_seg": int(np.minimum(cnt, s_max).sum())}}
+        rows.append({"kernel": key, "d": width, "n_pad": plan.n_pad, "max_abs_err": errs[0],
+                     **({"pap_max_abs_err": errs[1]} if key == "K4" else {}),
+                     "ms": cuda_ms(calls[0], 20), "plain_ms": cuda_ms(calls[1], 3),
+                     **window_bound(case, key)})
+        del X, g, out, ref
+    return rows
+
+
+def windowed_chunked() -> dict:
+    """The windowed tier under column chunks (OSCILLINK_WINDOWED_MATVEC=1).
+    On the locality-ordered 131072 x 768 x k8 corpus: the full-width
+    windowed settle, U* and full receipt, then the same from the same start
+    on the same context rebuilt under OSCILLINK_COL_CHUNKS = 2 (K4 fused,
+    K3 unfused, at D/c = 384) and 8 (K2 and its epilogue at 96); U* held
+    to the full-width run within WINDOWED_CHUNK_TOL of max|U|, each
+    solve's launches equal to its operator applies, the receipt's K1
+    launches its chunks.  The kernels against their plain versions at the
+    chunk widths.  Then the straggler corpus card against CPU at c = 2
+    (fused, unfused) and c = 8, held to the lattice bar."""
+    n, d, k = CORPUS["n"], CORPUS["d"], CORPUS["k"]
+    block = n * d * 4
+    Y, psi = locality_corpus(n, d)
+    out: dict = {"launches": {}}
+    with env(OSCILLINK_WINDOWED_MATVEC="1", OSCILLINK_WINDOWED_FUSED="1"):
+        lat = Oscillink(Y, kneighbors=k)
+        lat.set_query(psi)
+        check(lat._window_fullwidth and lat._auto_col_chunks() == 1,
+              "the windowed corpus should solve full width on the card")
+        full = solve_steps(lat, "K4")
+        checks: list = []
+        for route in ("settle", "ustar", "receipt"):
+            model_check(checks, f"windowed_full_{route}", n, d, k,
+                        "receipt" if route == "receipt" else "windowed",
+                        full[route]["resident"], 1, full[route])
+        Ustar_ref = lat._Ustar_cache_dev
+        scale = float(Ustar_ref.abs().max())
+        runs = {"full": {key: step_row(full[key], block) for key in ("settle", "ustar", "receipt")}}
+        runs["full"]["receipt_values"] = receipt_values(full["rec"])
+    for cc, fused, kernel in WINDOWED_CHUNKED:
+        with env(OSCILLINK_WINDOWED_MATVEC="1", OSCILLINK_WINDOWED_FUSED=fused,
+                 OSCILLINK_COL_CHUNKS=cc):
+            lat._maybe_build_window_ctx()
+            check(not lat._window_fullwidth and lat._window_ctx.oh is None,
+                  f"c = {cc}: the forced context should solve chunked, with no one-hot")
+            lat._U_dev = lat._Y_dev
+            lat._invalidate_cache()
+            steps = solve_steps(lat, kernel)
+            for route in ("settle", "ustar", "receipt"):
+                # the full-width U* is held beside the lattice's blocks
+                model_check(checks, f"windowed_c{cc}_fused{fused}_{route}", n, d, k,
+                            "receipt" if route == "receipt" else "windowed",
+                            steps[route]["resident"] + 1, int(cc), steps[route])
+            err = float((lat._Ustar_cache_dev - Ustar_ref).abs().max()) / scale
+            check(err <= WINDOWED_CHUNK_TOL, f"windowed c={cc} fused={fused}: U* {err}")
+            tag = f"c{cc}_fused{fused}"
+            runs[tag] = {key: step_row(steps[key], block) for key in ("settle", "ustar", "receipt")}
+            runs[tag].update(kernel=kernel, ustar_rel_err=err,
+                             receipt_values=receipt_values(steps["rec"]))
+            out["launches"][tag] = {kernel: steps["settle"]["launches"][kernel]
+                                    + steps["ustar"]["launches"][kernel],
+                                    "K1": steps["receipt"]["launches"]["K1"]}
+            del steps
+    del Ustar_ref
+    with env(OSCILLINK_WINDOWED_MATVEC="1"):
+        lat._maybe_build_window_ctx()  # OSCILLINK_COL_CHUNKS unset: full width again
+    rows = window_chunk_kernels(lat, {"K4": d // 2, "K3": d // 2, "K2": d // 8})
+    k1_row = k1_case({"case": "windowed_chunk_c2"}, lat.graph,
+                     torch.randn(n, d // 2, device="cuda"))
+    del lat
+    torch.cuda.empty_cache()
+    emit("windowed_chunked", **CORPUS, runs=runs, kernels_at_chunk_widths=rows,
+         k1_chunk_width=k1_row, model_checks=checks)
+    for row in checks:
+        check(row["ok"], f"working-set model under the measured peak: {row}")
+    out["rows"], out["k1_row"] = rows, k1_row
+    # the straggler corpus, card against CPU on the card's graph
+    Y, psi = clustered_corpus(STRAGGLERS["n"], STRAGGLERS["d"])
+    for cc, fused, kernel in WINDOWED_CHUNKED:
+        with env(OSCILLINK_WINDOWED_MATVEC="1", OSCILLINK_WINDOWED_FUSED=fused,
+                 OSCILLINK_COL_CHUNKS=cc):
+            run, lat = card_vs_cpu(f"windowed_stragglers_c{cc}_fused{fused}", Y, psi,
+                                   STRAGGLERS["k"], kernel)
+            check(not lat._window_fullwidth, f"stragglers c = {cc}: the context solved full width")
+            out["launches"][f"stragglers_c{cc}_fused{fused}"] = {kernel: run["launches"]}
+            del lat
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -1986,6 +2465,11 @@ def main() -> int:
         auto_launches["seeded_and_state"] = seeded_and_state(tmp)["launches"]
     torch.cuda.empty_cache()
 
+    # 7e. the 1M study shape: full width, column-chunked and the two CG
+    # forms, K1's launches counted from 0 before each step
+    big = million()
+    torch.cuda.empty_cache()
+
     # 8. windowed corpus: the full-width windowed main path through K4
     win_launches = {"K4": windowed_corpus()}
 
@@ -2013,6 +2497,14 @@ def main() -> int:
         emit("windowed_narrow_d_repeat", bit_equal=True)
         del lat, ctx, Xp, first, second
 
+    # 11. the windowed tier under column chunks: K4 and K3 at D/c = 384, K2
+    # and its epilogue at 96
+    wchunk = windowed_chunked()
+    chunk_rows = {row["kernel"]: row for row in wchunk["rows"]}
+    chunk_launches = {key: {tag: val[key] for tag, val in wchunk["launches"].items() if key in val}
+                      for key in ("K2", "K3", "K4")}
+    k1_chunk_rows = big["k1_rows"] + [wchunk["k1_row"]]
+
     print(json.dumps({"kernels": [{
         "name": "spmv_gather",
         "route": "cuda",
@@ -2038,6 +2530,11 @@ def main() -> int:
         "launches_auto": auto_launches,
         "gather_ceiling_ms": main_row["gather_ceiling_ms"],
         "per_shape": rows + narrow + [corpus_batch["k1_row"]],
+        "launches_chunked": {**big["launches"], **{
+            f"windowed_{tag}": val["K1"]
+            for tag, val in wchunk["launches"].items() if "K1" in val}},
+        "chunk_max_abs_err": max(r["max_abs_err"] for r in k1_chunk_rows),
+        "per_chunk_width": k1_chunk_rows,
     }] + [{
         "name": kname,
         "route": "cuda",
@@ -2051,6 +2548,9 @@ def main() -> int:
         "gather_plain_max_abs_err": win_errs[f"{key}_gather"],
         **({"pap_max_abs_err": win_errs["K4_pap"],
             "gather_plain_pap_max_abs_err": win_errs["K4_gather_pap"]} if key == "K4" else {}),
+        "launches_chunked": chunk_launches[key],
+        "chunk_max_abs_err": chunk_rows[key]["max_abs_err"],
+        "chunk_width": chunk_rows[key],
     } for key, kname, _, replaces in WINDOW_KERNELS] + [k5_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

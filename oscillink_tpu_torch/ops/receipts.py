@@ -11,6 +11,11 @@ Behavioral contracts from the reference (oscillink/core/receipts.py):
     and the zero (non-edge) entries have z = -mu/sigma <= any edge z, so the
     per-row argmax over the dense row equals the max over the sparse edges.
   * chain edge stats (lattice.py:466-515) reuse the same sparse row moments.
+
+`receipt_full_chunked` is the full receipt's sums over column slices: the
+stationary operator and the anchor and query terms act per column, so ΔH
+and the per-row sums accumulate over D/c columns at a time, and no
+full-width [N, D] temporary is made.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from .path import PathGraph
 __all__ = [
     "deltaH_trace",
     "per_node_components",
+    "receipt_full_chunked",
     "coherence_drop",
     "null_points_sparse",
     "chain_edge_stats",
@@ -120,6 +126,47 @@ def per_node_components(
     qp = Ustar - psi[None, :]
     query_term = lam.lamQ * B * torch.sum(qp * qp, dim=1)
     return coh, anchor_pen, query_term
+
+
+def receipt_full_chunked(
+    g: Graph,
+    pg: Optional[PathGraph],
+    U: torch.Tensor,
+    Ustar: torch.Tensor,
+    lam: EnergyParams,
+    B: torch.Tensor,
+    Y: torch.Tensor,
+    psi: torch.Tensor,
+    col_chunks: int,
+):
+    """(ΔH, Σ coh_drop, Σ anchor_pen, Σ query_term) of the full receipt with
+    the columns in ``col_chunks`` slices (port of the JAX lattice's
+    ``_jit_receipt_full_chunked``).  Each slice's operator apply is one
+    `stationary_matvec` at width D/c (kernel K1 on the card, plus the chain
+    term); the coherence drop stays full width on the row-blocked edge
+    distances.  ``col_chunks`` must divide D."""
+    n, d = U.shape
+    if d % col_chunks != 0:
+        raise ValueError(f"D={d} must divide col_chunks={col_chunks}")
+    w = d // col_chunks
+    dH = torch.zeros((), dtype=torch.float32, device=U.device)
+    anchor_vec = torch.zeros(n, dtype=torch.float32, device=U.device)
+    query_vec = torch.zeros(n, dtype=torch.float32, device=U.device)
+    for c in range(col_chunks):
+        sl = slice(c * w, (c + 1) * w)
+        us = Ustar[:, sl]
+        diff = U[:, sl] - us
+        dH = dH + torch.sum(diff * stationary_matvec(g, pg, lam, B, diff))
+        del diff
+        av = us - Y[:, sl]
+        anchor_vec += torch.sum(av * av, dim=1)
+        qp = us - psi[None, sl]
+        query_vec += torch.sum(qp * qp, dim=1)
+        del av, qp
+    anchor_sum = lam.lamG * torch.sum(anchor_vec)
+    query_sum = torch.sum(lam.lamQ * B * query_vec)
+    coh = coherence_drop(g, Y, Ustar, lam.lamC)
+    return dH, torch.sum(coh), anchor_sum, query_sum
 
 
 class SparseRowStats(NamedTuple):

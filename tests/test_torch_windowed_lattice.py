@@ -167,10 +167,29 @@ def test_cpu_lattice_builds_its_onehot_and_the_ctx_carries_W_and_s_max(monkeypat
             solve(ctx._replace(oh=None), ty, psi, B, lam, max_iters=2)
 
 
-def test_chunked_windowed_solves_are_not_ported():
-    for fn in (tcoh.solve_stationary_windowed_chunked, tcoh.settle_step_windowed_chunked):
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
-            fn()
+@pytest.mark.parametrize("col_chunks,fused", [("2", "1"), ("2", "0"), ("4", "1")])
+def test_chunked_windowed_lattice_matches_jax(monkeypatch, col_chunks, fused):
+    """A forced window context under OSCILLINK_COL_CHUNKS solves chunked in
+    both packages: at D = 256, chunks of 128 take the K4 (fused) or K3
+    plain paths and chunks of 64 take K2 and its epilogue.  The settle, U*
+    and the chunked receipt meet the lattice bars."""
+    monkeypatch.setenv("OSCILLINK_COL_CHUNKS", col_chunks)
+    lj, lt = _windowed_pair(monkeypatch, 1200, 256, 5, fused=fused)
+    assert lt._window_fullwidth is False and lj._window_fullwidth is False
+    assert lt._graph_snapshot()["window_fullwidth"] is False
+    widths = []
+    for name in ("settle_step_windowed", "settle_step_windowed_fused",
+                 "solve_stationary_windowed", "solve_stationary_windowed_fused"):
+        orig = getattr(tcoh, name)
+
+        def spy(ctx, *a, _orig=orig, _name=name, **kw):
+            widths.append((_name.endswith("fused"), a[0].shape[1]))
+            return _orig(ctx, *a, **kw)
+
+        monkeypatch.setattr(tcoh, name, spy)
+    _assert_lattices_agree(lj, lt, dict(max_iters=16, tol=1e-4))
+    c = int(col_chunks)
+    assert widths == [(fused == "1", 256 // c)] * (2 * c)
 
 
 @pytest.mark.parametrize("seed", [0, 3])
