@@ -7,7 +7,8 @@ Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2, K3 and K4
 (``csrc/bucket_gather.cu``) from the checkout, one ``nvcc`` per source, all
 started together, and holds each against its plain PyTorch version (K1
 also bit-equal from launch to launch and across forced column-slab widths,
-and its slab widths swept and timed in turns at the corpus shape; K2-K4
+and its slab widths swept and timed in turns at the corpus shape, at
+262144 and 524288 rows and at 1M rows of 768, 192 and 96 columns; K2-K4
 against the one-hot form and their own gather forms, and bit-equal from
 launch to launch; on a NaN and an infinity in window rows no row
 references, to the gather forms' semantics).  Then it drives the paths
@@ -58,6 +59,19 @@ through the public entry points:
   run, the kernels against their plain versions at those widths, and the
   straggler corpus card against CPU at each.
 
+* the service (``oscillink_tpu_torch.service``) on the card: its warmup
+  for 5000 x 768 x k8 in two fresh processes sharing an empty kernel build
+  directory (``OSCILLINK_COMPILE_CACHE_DIR``: the first builds K1, the
+  second loads it); the verify skill's quickstart payload through
+  /v1/settle, /v1/receipt, /v1/bundle and /v1/chain/receipt; every compute
+  route at the service's full size (5000 x 768 x k8: settle with a signed
+  receipt and a bundle, bundle, chain receipt, settle batch of 8 queries,
+  ragged bundle of 4 corpora, a diffusion-gated settle under a pro key, a
+  job polled to completion, a graph-cache hit), each timed warm and split
+  into parse, lattice and encode; each response held against the service
+  on the CPU; and the quickstart /v1/settle through the aiohttp binding on
+  127.0.0.1 when aiohttp is installed.
+
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
 never falls back to the CPU.  Without CUDA it exits 1 before printing any
@@ -70,6 +84,7 @@ JSON line per phase, the ``{"kernels": [...]}`` line, and as the last line
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
 import os
@@ -78,8 +93,11 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -103,6 +121,11 @@ from oscillink_tpu_torch.ops.kernels import window_spmv as tw
 from oscillink_tpu_torch.ops import receipts as treceipts
 from oscillink_tpu_torch.ops.path import build_path_graph
 from oscillink_tpu_torch.ops.receipts import deltaH_tree_np
+from oscillink_tpu_torch.core.receipts import canonical_json, verify_receipt
+from oscillink_tpu_torch.service import LocalClient, create_state
+from oscillink_tpu_torch.service import api as tapi
+from oscillink_tpu_torch.service import config as tconfig
+from oscillink_tpu_torch.service.warmup import run_warmup
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -143,8 +166,12 @@ WIN_512 = dict(n=4099, d=128, k=8, W=512, R=256, n_win=2)
 WIN_K40 = dict(n=4099, d=97, k=40)
 STRAGGLERS = dict(n=16384, d=768, k=8)
 NARROW = dict(n=8192, d=97, k=8)
-# K1's slab widths swept at the corpus shape, beside D (the whole-row walk)
-SLAB_SWEEP = (16, 32, 64)
+# K1's slab widths swept at the corpus shape and at 262144, 524288 and 1M
+# rows (D = 768, k = 8), beside D (the whole-row walk) and the plan's width
+SLAB_SWEEP = (4, 8, 16, 32, 64, 128, 256)
+# the size between the corpus and the cluster tier where the old plan fell
+# to 8 columns: the loose study corpus, built as the service's default does
+K1_SWEEP_MID = dict(n=262144, d=768, k=8, centres=1024, spread=0.6)
 # forced slab widths held to the plan's bits at the small K1 shapes: 1-32
 # lanes a row, widths that leave a ragged last slab, odd widths on float4 rows
 SLAB_CHECK = (1, 2, 3, 4, 5, 8, 12, 16, 20, 32, 33, 64, 100)
@@ -183,6 +210,14 @@ CHUNK_DH_REL, CHUNK_SUM_REL = 1e-5, 1e-4  # tests/test_chunked_receipts.py:65-91
 WINDOWED_CHUNK_TOL = 5e-4  # U*, relative to max|U| (tests/test_window_spmv.py:189)
 # (OSCILLINK_COL_CHUNKS, OSCILLINK_WINDOWED_FUSED, the kernel the chunk width takes)
 WINDOWED_CHUNKED = (("2", "1", "K4"), ("2", "0", "K3"), ("8", "1", "K2"))
+# the service: one request at its full size (max_nodes, service/config.py)
+# with Q queries for the batch route, B corpora for the ragged one and a
+# 4-node chain; warm calls timed per endpoint; every signed receipt under
+# one secret
+FLAGSHIP = dict(n=5000, d=768, k=8, q=8, ragged=(500, 1000, 2000, 4000), chain=[2, 5, 7, 9])
+SERVICE_WARM_CALLS = 3
+SERVICE_SECRET = "chip-smoke-receipt-secret"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -224,12 +259,18 @@ def data(n: int, d: int, seed: int = 0):
     return Y, (m / (np.linalg.norm(m) + 1e-12)).astype(np.float32)
 
 
-def quickstart(device: str) -> dict:
-    """The verify-skill quickstart flow on ``device``."""
+def quick_inputs():
+    """The verify-skill quickstart's inputs: Gaussian anchors from seed 0,
+    psi = normalized mean of the first 20 rows."""
     rng = np.random.default_rng(0)
     Y = rng.standard_normal((QUICK["n"], QUICK["d"])).astype(np.float32)
     m = Y[:20].mean(0)
-    psi = (m / (np.linalg.norm(m) + 1e-12)).astype(np.float32)
+    return Y, (m / (np.linalg.norm(m) + 1e-12)).astype(np.float32)
+
+
+def quickstart(device: str) -> dict:
+    """The verify-skill quickstart flow on ``device``."""
+    Y, psi = quick_inputs()
     lat = Oscillink(Y, kneighbors=QUICK["k"], device=device)
     lat.set_query(psi)
     lat.add_chain(QUICK["chain"], lamP=QUICK["lamP"])
@@ -385,6 +426,7 @@ def k1_slab_sweep(shape: dict, case: dict) -> dict:
     n, d, k = shape["n"], shape["d"], shape["k"]
     plan = k1_slab_cols(n, d, k)
     widths = sorted({*(w for w in SLAB_SWEEP if w < d), d, plan})
+    reps = 20 if n <= CORPUS["n"] else 5
     ref = spmv.lap_matvec_cuda(g.idx, g.wn, X)
     for w in widths:
         out = spmv.lap_matvec_cuda(g.idx, g.wn, X, slab_cols=w)
@@ -393,20 +435,49 @@ def k1_slab_sweep(shape: dict, case: dict) -> dict:
         del out
     del ref
     times = turns_ms({w: (lambda w=w: spmv.lap_matvec_cuda(g.idx, g.wn, X, slab_cols=w))
-                      for w in widths}, 20)
+                      for w in widths}, reps)
     # the access pattern's own cost: one slot a row reading the row itself
     # (no gather traffic), at the plan's width and at S = D
     own = torch.arange(n, dtype=torch.int32, device=X.device)[:, None].contiguous()
     zero = torch.zeros(n, 1, device=X.device)
     stream = turns_ms({w: (lambda w=w: spmv.lap_matvec_cuda(own, zero, X, slab_cols=w))
-                       for w in (plan, d)}, 20)
+                       for w in (plan, d)}, reps)
+    del own, zero
+    ms = {w: statistics.mean(t) for w, t in times.items()}
+    fastest = min(ms, key=ms.get)
     row = {"plan_slab_cols": plan, "l2_bytes": spmv.device_l2_bytes(0),
            "l2_budget_bytes": spmv.l2_budget(spmv.device_l2_bytes(0)),
-           "ms": {str(w): statistics.mean(t) for w, t in times.items()},
+           "slab_cols_rule": spmv.SLAB_COLS, "fastest_slab_cols": fastest,
+           "plan_over_fastest": ms[plan] / ms[fastest],
+           "ms": {str(w): t for w, t in ms.items()},
            "turns_ms": {str(w): t for w, t in times.items()}, "bit_equal_to_plan": True,
            "stream_only_ms": {str(w): statistics.mean(t) for w, t in stream.items()}}
-    emit("k1_slab_sweep", **shape, **row)
+    row = {**shape, **row}
+    emit("k1_slab_sweep", **row)
     return row
+
+
+def k1_graph_sweep(shape: dict, g, seed: int) -> dict:
+    """`k1_slab_sweep` on a lattice's graph ``g`` with a random X of
+    ``shape``'s width."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(g.n_nodes, shape["d"], generator=gen, device="cuda")
+    row = k1_slab_sweep({key: shape[key] for key in ("n", "d", "k")}, {"g": g, "X": X})
+    del X
+    torch.cuda.empty_cache()
+    return row
+
+
+def k1_sweep_mid() -> dict:
+    """K1's slab widths at 262144 x 768 x k8 on the graph that
+    ``similarity="auto"`` builds there (the fast scan) from the loose study
+    corpus."""
+    s = K1_SWEEP_MID
+    Y, _ = study_corpus(s["n"], s["d"], centres=s["centres"], spread=s["spread"])
+    lat = Oscillink(Y, kneighbors=s["k"], similarity="auto")
+    g = lat.graph
+    del lat, Y
+    return k1_graph_sweep(s, g, seed=6)
 
 
 def k1_ptxas(report: dict) -> dict:
@@ -1697,9 +1768,11 @@ def cluster_corpus() -> dict:
     U = lat.U
     check(U.shape == (n, d) and bool(np.isfinite(U).all()), "cluster corpus U not finite")
     del U
-    Yd = lat._Y_dev
+    Yd, g = lat._Y_dev, lat.graph
     del lat
     torch.cuda.empty_cache()
+    sweep = k1_graph_sweep(CLUSTER, g, seed=7)
+    del g
     stages = ivf_stage_ms(Yd, k)
     del Yd
     torch.cuda.empty_cache()
@@ -1748,7 +1821,7 @@ def cluster_corpus() -> dict:
          similarity_info=iso_info)
     check(iso_info["mode"] == "fallback-fast", f"isotropic corpus: {iso_info}")
     check("clusterability" in iso_info["reason"], f"isotropic fallback reason: {iso_info}")
-    return {"launches": counts["K1"], "build_ms": build_ms}
+    return {"launches": counts["K1"], "build_ms": build_ms, "sweep": sweep}
 
 
 def ivf_parity() -> dict:
@@ -2158,28 +2231,29 @@ def million() -> dict:
     del lat, U_start
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(5)
-    k1_rows = []
+    k1_rows, chunk_sweeps = [], []
     for c in MILLION_CHUNKS:
         X = torch.randn(n, d // c, generator=gen, device="cuda")
         k1_rows.append(k1_case({"case": f"million_chunk_c{c}"}, g, X))
+        chunk_sweeps.append(k1_slab_sweep({"n": n, "d": d // c, "k": k}, {"g": g, "X": X}))
         del X
-    # K1 at full width on this graph: its plan's slab width beside S = D
+    # K1 at full width on this graph against its plain version and
+    # torch.sparse.mm, then its slab widths swept
     X = torch.randn(n, d, generator=gen, device="cuda")
-    k1_full = {"slab_cols": k1_slab_cols(n, d, k), **turns_ms({
-        "plan": lambda: spmv.lap_matvec_cuda(g.idx, g.wn, X),
-        "full_width": lambda: spmv.lap_matvec_cuda(g.idx, g.wn, X, slab_cols=d),
-    }, 5)}
+    k1_full = k1_case({"case": "million_full_width"}, g, X)
+    sweep = k1_slab_sweep({"n": n, "d": d, "k": k}, {"g": g, "X": X})
     del X, g
     torch.cuda.empty_cache()
     emit("million", **MILLION, decisions=decisions, form_rel_err=form_errs,
          ustar_turns_ms=turn_ms,
          ustar_median_ms_in_turns={form: statistics.median(turn_ms[form]) for form in turn_ms},
-         model_checks=checks, k1_chunk_widths=k1_rows, k1_full_width_ms=k1_full)
+         model_checks=checks, k1_chunk_widths=k1_rows, k1_full_width=k1_full)
     for row in checks:
         check(row["ok"], f"working-set model under the measured peak: {row}")
     launches = {f"{run}_{key}": runs[run][key]["launches"]["K1"]
                 for run in runs for key in ("settle", "ustar", "receipt")}
-    return {"launches": launches, "k1_rows": k1_rows}
+    return {"launches": launches, "k1_rows": k1_rows, "k1_full": k1_full, "sweep": sweep,
+            "chunk_sweeps": chunk_sweeps}
 
 
 def window_chunk_kernels(lat: Oscillink, widths: dict) -> list:
@@ -2304,6 +2378,403 @@ def windowed_chunked() -> dict:
     return out
 
 
+# -- the service layer: the port's /v1 routes through K1 ----------------------
+
+# the keys of a service response the bars hold, card against CPU (besides
+# deltaH_total, the null-point lists' lengths and the bundles' ids)
+DIGEST_KEYS = ("state_sig", "verdict", "backend", "cg_iters", "ustar_iters", "iters",
+               "graph_cache", "cache", "queries", "corpora", "N", "D", "kneighbors_effective")
+
+
+def service_digest(body, path: str = "") -> dict:
+    """What the bars compare in a service response, keyed by its path in
+    the JSON: state signatures, ΔH, null-point counts, bundle ids, chain
+    verdicts, iteration counts, backends and cache statuses."""
+    out = {}
+    if isinstance(body, dict):
+        for key, val in body.items():
+            where = f"{path}.{key}"
+            if key == "deltaH_total":
+                out[where] = float(val)
+            elif key == "null_points" and isinstance(val, list):
+                out[where] = len(val)
+            elif key == "bundle" and isinstance(val, list):
+                out[where] = [e["id"] for e in val]
+            elif key == "bundles" and isinstance(val, list):
+                out[where] = [[e["id"] for e in b] for b in val]
+            elif key in DIGEST_KEYS and not isinstance(val, (dict, list)):
+                out[where] = val
+            else:
+                out.update(service_digest(val, where))
+    elif isinstance(body, list):
+        for i, val in enumerate(body):
+            out.update(service_digest(val, f"{path}[{i}]"))
+    return out
+
+
+def signed_receipts(body) -> list:
+    if isinstance(body, dict):
+        found = [body] if "deltaH_total" in body and isinstance(body.get("meta"), dict) else []
+        return found + [r for val in body.values() for r in signed_receipts(val)]
+    if isinstance(body, list):
+        return [r for val in body for r in signed_receipts(val)]
+    return []
+
+
+def hold_service(tag: str, card: dict, cpu: dict, sig_equal: bool = True) -> dict:
+    """The card's response against the CPU service's on the same request:
+    every digest field identical (``state_sig`` only when ``sig_equal``),
+    ΔH within LATTICE_TOL relative, ``meta.backend`` "device"; each signed
+    receipt verifies, and two receipts whose signed payloads are
+    byte-identical carry the same signature."""
+    dc, dp = service_digest(card), service_digest(cpu)
+    check(set(dc) == set(dp), f"{tag}: response fields {sorted(set(dc) ^ set(dp))}")
+    rel = 0.0
+    for where, want in dp.items():
+        if where.endswith("deltaH_total"):
+            gap = abs(dc[where] - want) / max(abs(want), 1e-30)
+            rel = max(rel, gap)
+            check(gap <= LATTICE_TOL, f"{tag}: {where} card {dc[where]} vs CPU {want}")
+        elif where.endswith("state_sig"):
+            check((dc[where] == want) == sig_equal, f"{tag}: {where} card {dc[where]} vs CPU {want}")
+        else:
+            check(dc[where] == want, f"{tag}: {where} card {dc[where]} vs CPU {want}")
+    for where, val in dc.items():
+        if where.endswith(".backend"):
+            check(val == "device", f"{tag}: {where} is {val}")
+    pairs = list(zip(signed_receipts(card), signed_receipts(cpu)))
+    same_payload = 0
+    for rc, rp in pairs:
+        sc, sp = rc["meta"].get("signature"), rp["meta"].get("signature")
+        check((sc is None) == (sp is None), f"{tag}: one receipt signed, the other not")
+        if sc is None:
+            continue
+        check(verify_receipt(rc, SERVICE_SECRET) and verify_receipt(rp, SERVICE_SECRET),
+              f"{tag}: a signed receipt does not verify")
+        if canonical_json(sc["payload"]) == canonical_json(sp["payload"]):
+            same_payload += 1
+            check(sc["signature"] == sp["signature"], f"{tag}: same payload, other signature")
+    return {"deltaH_rel": rel, "fields_held": len(dp),
+            "signed_receipts": sum("signature" in r["meta"] for r, _ in pairs),
+            "same_signed_payload": same_payload}
+
+
+PARSE_STEPS = ("json", "validate", "numpy")
+
+
+@contextlib.contextmanager
+def parse_clock():
+    """Seconds the service spends parsing a request, by step: the JSON
+    decode (`ApiRequest.json`), the pydantic validation (`api._parse`) and
+    the numpy conversion of the payload's arrays (`api._np_array_or_400`)."""
+    spent = dict.fromkeys(PARSE_STEPS, 0.0)
+    saved = (tapi.ApiRequest.json, tapi._parse, tapi._np_array_or_400)
+
+    def timed(step, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[step] += time.perf_counter() - t0
+        return call
+
+    tapi.ApiRequest.json, tapi._parse, tapi._np_array_or_400 = (
+        timed(step, fn) for step, fn in zip(PARSE_STEPS, saved))
+    try:
+        yield spent
+    finally:
+        tapi.ApiRequest.json, tapi._parse, tapi._np_array_or_400 = saved
+
+
+def service_call(client: LocalClient, path: str, data: bytes, headers=None) -> tuple:
+    """One request through the service, launch counts set to 0 and the peak
+    counter reset just before: its host ms split into parse, the rest of
+    the handler (the lattice and the service's own work) and the JSON
+    encode of the response the HTTP binding does; K1's launches and the
+    device's peak allocation.  A job (202) is polled to completion, which
+    the rest of the handler then includes."""
+    cuda = client.state.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with parse_clock() as spent:
+        t0 = time.perf_counter()
+        resp = client.request("POST", path, data=data, headers=headers)
+        if resp.status_code == 202:
+            job_id = resp.json()["job_id"]
+            while True:
+                resp = client.request("GET", f"/v1/jobs/{job_id}", headers=headers)
+                if resp.json()["status"] in ("done", "error"):
+                    break
+                time.sleep(0.002)
+            check(resp.json()["status"] == "done", f"job failed: {resp.json()}")
+        handle_s = time.perf_counter() - t0
+    check(resp.status_code == 200, f"{path}: status {resp.status_code}: {str(resp.json())[:400]}")
+    t0 = time.perf_counter()
+    json.dumps(resp.json())
+    encode_s = time.perf_counter() - t0
+    parse_s = sum(spent.values())
+    row = {"ms": 1e3 * (handle_s + encode_s), "parse_ms": 1e3 * parse_s,
+           **{f"parse_{step}_ms": 1e3 * spent[step] for step in PARSE_STEPS},
+           "lattice_ms": 1e3 * (handle_s - parse_s), "encode_ms": 1e3 * encode_s,
+           "k1_launches": spmv.launches,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+    body = resp.json()
+    return (body["result"] if "result" in body else body), row
+
+
+def timed_endpoint(tag: str, card: LocalClient, cpu: LocalClient, path: str, data: bytes,
+                   headers=None, cold: bool = True, sig_equal: bool = True) -> dict:
+    """A cold call on the card (unless ``cold`` is False), then
+    SERVICE_WARM_CALLS warm ones; their medians, the last held against the
+    CPU service's answer to the same request."""
+    cold_row = service_call(card, path, data, headers)[1] if cold else None
+    warm = [service_call(card, path, data, headers) for _ in range(SERVICE_WARM_CALLS)]
+    body_cpu, cpu_row = service_call(cpu, path, data, headers)
+    rows = [row for _, row in warm]
+    launches = [row["k1_launches"] for row in rows]
+    check(all(x > 0 for x in launches), f"{tag}: K1 was not launched ({launches})")
+    check(len(set(launches)) == 1, f"{tag}: K1 launches differ from call to call: {launches}")
+    held = hold_service(tag, warm[-1][0], body_cpu, sig_equal=sig_equal)
+    out = {"endpoint": path, **{key: statistics.median(r[key] for r in rows) for key in (
+               "ms", "parse_ms", *(f"parse_{step}_ms" for step in PARSE_STEPS), "lattice_ms",
+               "encode_ms")},
+           "warm_ms": [r["ms"] for r in rows], "cold_ms": cold_row and cold_row["ms"],
+           "k1_launches": launches[-1], "peak_bytes": max(r["peak_bytes"] or 0 for r in rows),
+           "cpu_ms": cpu_row["ms"], "request_bytes": len(data), **held}
+    emit("service_endpoint", name=tag, **out)
+    return out
+
+
+def service_clients() -> tuple:
+    """The port's service on the card and on the CPU, fresh state each."""
+    return LocalClient(create_state()), LocalClient(create_state(device="cpu"))
+
+
+def quick_payload() -> dict:
+    Y, psi = quick_inputs()
+    return {"Y": Y.tolist(), "psi": psi.tolist(), "chain": QUICK["chain"],
+            "params": {"kneighbors": QUICK["k"], "lamP": QUICK["lamP"]},
+            "options": {"max_iters": 12, "tol": 1e-3, "bundle_k": 6}}
+
+
+def service_quickstart() -> dict:
+    """The verify skill's quickstart payload (120 x 128, k = 6, chain
+    [2, 5, 7, 9]) through /v1/settle, /v1/receipt, /v1/bundle and
+    /v1/chain/receipt of the port's service on the card, each response
+    held against the service on the CPU; K1's launches counted from 0
+    before each request."""
+    data = json.dumps(quick_payload()).encode()
+    out = {}
+    with env(OSCILLINK_RECEIPT_SECRET=SERVICE_SECRET):
+        tconfig.get_settings.cache_clear()
+        card, cpu = service_clients()
+        for path in ("/v1/settle", "/v1/receipt", "/v1/bundle", "/v1/chain/receipt"):
+            body_card, row = service_call(card, path, data)
+            body_cpu = service_call(cpu, path, data)[0]
+            check(row["k1_launches"] > 0, f"quickstart {path}: K1 was not launched")
+            out[path] = {"k1_launches": row["k1_launches"], "ms": row["ms"],
+                         **hold_service(f"quickstart {path}", body_card, body_cpu)}
+        settle = service_call(card, "/v1/settle", data)[0]
+    tconfig.get_settings.cache_clear()
+    check(out["/v1/settle"]["signed_receipts"] == 1, "quickstart: the settle receipt is not signed")
+    emit("service_quickstart", **QUICK, routes=out)
+    return {"launches": {path: row["k1_launches"] for path, row in out.items()},
+            "state": card.state, "data": data, "settle": settle}
+
+
+def diffusion_rounding(Y, psi, k: int, dopt: dict) -> dict:
+    """The diffusion gates the service derives, on the card and on the CPU:
+    their largest gap, and whether every gate rounds alike at the state
+    signature's 1e-6 (the signature hashes the rounded gates)."""
+    gates = []
+    for dev in ("cuda", "cpu"):
+        lat = Oscillink(Y, kneighbors=k, device=dev)
+        lat.set_query(psi)
+        gates.append(np.asarray(lat.diffusion_gates(**dopt)))
+        del lat
+    differ = int((np.round(gates[0], 6) != np.round(gates[1], 6)).sum())
+    return {"max_abs_gap": float(np.abs(gates[0] - gates[1]).max()),
+            "gates_rounding_apart": differ, "rounded_alike": differ == 0}
+
+
+def service_warmup() -> dict:
+    """`run_warmup` for the flagship shape: in two fresh processes sharing
+    an empty kernel build directory (OSCILLINK_COMPILE_CACHE_DIR), the
+    first of which builds K1 with nvcc and the second loads it, then in
+    this process (kernels already loaded)."""
+    shape = f"{FLAGSHIP['n']}x{FLAGSHIP['d']}x{FLAGSHIP['k']}"
+    code = ("import json, time\n"
+            "t0 = time.perf_counter()\n"
+            "from oscillink_tpu_torch.service.warmup import run_warmup\n"
+            "n = run_warmup(verbose=False)\n"
+            "print(json.dumps({'warmed': n, 's': time.perf_counter() - t0}))\n")
+    runs = []
+    with tempfile.TemporaryDirectory() as cache:
+        env_vars = {**os.environ, "OSCILLINK_COMPILE_CACHE_DIR": cache,
+                    "OSCILLINK_WARM_SHAPES": shape}
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", code], env=env_vars, cwd=ROOT,
+                                 capture_output=True, text=True, timeout=600)
+            check(out.returncode == 0, f"warmup process failed: {out.stderr[-2000:]}")
+            row = json.loads(out.stdout.strip().splitlines()[-1])
+            row["process_s"] = time.perf_counter() - t0
+            row["libraries"] = {p.name: p.stat().st_mtime_ns for p in Path(cache).glob("*.so")}
+            runs.append(row)
+    check(all(r["warmed"] == 1 for r in runs), f"warmup did not warm {shape}: {runs}")
+    check(any(name.startswith("spmv-") for name in runs[0]["libraries"]),
+          f"the first warmup built no K1 library into the cache: {runs[0]}")
+    check(runs[1]["libraries"] == runs[0]["libraries"],
+          "the second warmup rebuilt a library the cache already held")
+    with env(OSCILLINK_WARM_SHAPES=shape):
+        t0 = time.perf_counter()
+        warmed = run_warmup(verbose=False)
+        in_process_ms = sync_ms(t0)
+    check(warmed == 1, "in-process warmup failed")
+    row = {"shape": shape, "cold_cache_process": runs[0], "warm_cache_process": runs[1],
+           "in_process_ms": in_process_ms}
+    emit("service_warmup", **row)
+    return row
+
+
+def service_flagship() -> dict:
+    """One request of each route at the service's full size, N = 5000
+    (max_nodes) x D = 768 x kneighbors 8, psi the normalized mean of the
+    first 20 rows; each JSON body serialized once.  Per endpoint: a cold
+    call, SERVICE_WARM_CALLS warm ones (host-clock medians split into
+    parse, lattice and encode; K1's launches from 0; peak device memory),
+    and the CPU service's answer, held with the bars of `hold_service`.
+    The bundle cache is off (its TTL 0) so that every call computes."""
+    f = FLAGSHIP
+    n, d, k = f["n"], f["d"], f["k"]
+    rng = np.random.default_rng(11)
+    Y = rng.standard_normal((n, d), dtype=np.float32)
+    m = Y[:20].mean(0)
+    psi = (m / (np.linalg.norm(m) + 1e-12)).astype(np.float32)
+    base = {"Y": Y.tolist(), "psi": psi.tolist(), "params": {"kneighbors": k}}
+    other_psi = queries(Y, 2)[1]
+    dopt = {"beta": 1.0, "gamma": 0.1, "tol": 1e-4, "max_iters": 256}
+    corpora = [data(c, d, seed=200 + i) for i, c in enumerate(f["ragged"])]
+    bodies = {
+        "settle": {**base, "options": {"bundle_k": 8, "include_receipt": True}},
+        "bundle": {**base, "bundle_k": 8},
+        "chain_receipt": {**base, "chain": f["chain"]},
+        "settle_batch": {"Y": base["Y"], "psis": queries(Y, f["q"]).tolist(),
+                         "params": base["params"], "bundle_k": 8},
+        "bundle_ragged": {"corpora": [c.tolist() for c, _ in corpora],
+                          "psis": [p.tolist() for _, p in corpora],
+                          "params": base["params"], "bundle_k": 8},
+        "settle_diffusion": {**base, "options": {"bundle_k": 8}, "diffusion": dopt},
+        "graph_cache_hit": {**base, "psi": other_psi.tolist(), "options": {"bundle_k": 8}},
+    }
+    t0 = time.perf_counter()
+    raw = {key: json.dumps(val).encode() for key, val in bodies.items()}
+    serialize_ms = 1e3 * (time.perf_counter() - t0)
+    del bodies, base
+    rows = {}
+    with env(OSCILLINK_RECEIPT_SECRET=SERVICE_SECRET, OSCILLINK_BUNDLE_CACHE_TTL="0"):
+        tconfig.get_settings.cache_clear()
+        card, cpu = service_clients()
+        for key, path in (("settle", "/v1/settle"), ("bundle", "/v1/bundle"),
+                          ("chain_receipt", "/v1/chain/receipt"),
+                          ("settle_batch", "/v1/settle/batch"),
+                          ("bundle_ragged", "/v1/bundle/ragged"),
+                          ("jobs_settle", "/v1/jobs/settle")):
+            rows[key] = timed_endpoint(key, card, cpu, path, raw.get(key, raw["settle"]))
+        # the graph cache: a miss on this corpus, then the same Y with another
+        # psi, which must be served from the cached graph
+        with env(OSCILLINK_GRAPH_CACHE_SIZE="4"):
+            card, cpu = service_clients()
+            miss, miss_row = service_call(card, "/v1/settle", raw["settle"])
+            check(miss["meta"]["graph_cache"] == "MISS", f"graph cache: {miss['meta']}")
+            service_call(cpu, "/v1/settle", raw["settle"])
+            rows["graph_cache_hit"] = timed_endpoint(
+                "graph_cache_hit", card, cpu, "/v1/settle", raw["graph_cache_hit"], cold=False)
+            rows["graph_cache_hit"]["miss_ms"] = miss_row["ms"]
+            hit = service_call(card, "/v1/settle", raw["graph_cache_hit"])[0]
+            check(hit["meta"]["graph_cache"] == "HIT", f"graph cache: {hit['meta']}")
+        # a diffusion-gated settle under a key whose tier allows it (as
+        # tests/test_service.py::test_diffusion_tier_gate sets it up); the
+        # state signature hashes the derived gates rounded to 1e-6, so card
+        # and CPU give the same one exactly when every gate rounds alike
+        with env(OSCILLINK_API_KEYS="pk", OSCILLINK_KEY_TIERS="pk:pro"):
+            card, cpu = service_clients()
+            h = {"X-API-Key": "pk"}
+            rounding = diffusion_rounding(Y, psi, k, dopt)
+            rows["settle_diffusion"] = {**timed_endpoint(
+                "settle_diffusion", card, cpu, "/v1/settle", raw["settle_diffusion"], h,
+                sig_equal=rounding["rounded_alike"]), "gates": rounding}
+    tconfig.get_settings.cache_clear()
+    emit("service_flagship", **{key: val for key, val in f.items() if key != "ragged"},
+         ragged=list(f["ragged"]), serialize_ms=serialize_ms,
+         diffusion_gates=rows["settle_diffusion"]["gates"],
+         request_bytes={key: len(val) for key, val in raw.items()},
+         split_ms={key: {part: row[part] for part in (
+             "ms", "parse_ms", *(f"parse_{step}_ms" for step in PARSE_STEPS), "lattice_ms",
+             "encode_ms")} for key, row in rows.items()})
+    return {"launches": {key: row["k1_launches"] for key, row in rows.items()}, "rows": rows}
+
+
+def service_http(state, data: bytes, expect: dict) -> dict:
+    """The quickstart /v1/settle through the port's aiohttp binding on
+    127.0.0.1, served from a thread, against the in-process answer; or,
+    without aiohttp, a line that says the binding did not run."""
+    try:
+        import aiohttp  # noqa: F401
+    except ImportError:
+        emit("service_http", http_binding="aiohttp absent")
+        return {"http_binding": "aiohttp absent"}
+    from oscillink_tpu_torch.service.http import create_app
+
+    with env(OSCILLINK_RECEIPT_SECRET=SERVICE_SECRET):
+        tconfig.get_settings.cache_clear()
+        row = http_settle(create_app(state), data)
+    tconfig.get_settings.cache_clear()
+    got, want = service_digest(row.pop("body")), service_digest(expect)
+    check(got == want, f"HTTP /v1/settle differs from the in-process answer: {got} vs {want}")
+    row["fields_held"] = len(want)
+    emit("service_http", **row)
+    return row
+
+
+def http_settle(app, data: bytes) -> dict:
+    """POST ``data`` to /v1/settle of ``app`` served on 127.0.0.1 by an
+    event loop in a thread, which is stopped before this returns."""
+    from aiohttp import web
+
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(app)
+    loop.run_until_complete(runner.setup())
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    loop.run_until_complete(site.start())
+    port = site._server.sockets[0].getsockname()[1]
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    try:
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/settle", data=data,
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        reset_counts()
+        t0 = time.perf_counter()
+        with opener.open(req, timeout=300) as resp:
+            status, body = resp.status, json.loads(resp.read())
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = spmv.launches
+    finally:
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        check(not thread.is_alive(), "the HTTP binding's event loop did not stop")
+        loop.close()
+    check(status == 200, f"HTTP /v1/settle: status {status}")
+    check(launches > 0, "HTTP /v1/settle: K1 was not launched")
+    return {"http_binding": "aiohttp", "status": status, "ms": ms, "k1_launches": launches,
+            "body": body}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2387,6 +2858,22 @@ def main() -> int:
     passes = [flow_pass(Y, psi, HEADLINE["k"])[0] for _ in range(5)]
     emit("headline", **HEADLINE, passes=len(passes), **medians(passes))
 
+    # 5b. the service: its warmup in fresh processes on an empty kernel build
+    # directory, the quickstart payload through four routes, every route at
+    # the service's full size, and the HTTP binding; each response against
+    # the CPU service, K1's launches counted from 0 before each request
+    service_warmup()
+    quick = service_quickstart()
+    flagship = service_flagship()
+    http = service_http(quick["state"], quick["data"], quick["settle"])
+    service_launches = {
+        **{f"quickstart {path}": val for path, val in quick["launches"].items()},
+        **{f"flagship {key}": val for key, val in flagship["launches"].items()},
+        "http /v1/settle": http.get("k1_launches"),
+    }
+    del quick, flagship
+    torch.cuda.empty_cache()
+
     # 6. corpus scale, gather path (K1): the launch counts of its last pass
     Y, psi = data(CORPUS["n"], CORPUS["d"])
     flow_pass(Y, psi, CORPUS["k"])
@@ -2430,6 +2917,7 @@ def main() -> int:
     rows = [time_kernel(HEADLINE, cases["headline"]), time_kernel(CORPUS, cases["corpus"])]
     main_row = rows[1]
     sweep = k1_slab_sweep(CORPUS, cases["corpus"])
+    sweep_mid = k1_sweep_mid()
     # 7b. K1 at the serving paths' narrow widths and on the ragged union graph
     narrow = k1_narrow(cases["corpus"]["g"], cases["ragged"]["g"])
     k1_err = max([c["err"] for c in cases.values()] + [r["max_abs_err"] for r in narrow])
@@ -2459,7 +2947,8 @@ def main() -> int:
     scan_routes()
     auto_launches["auto_corpus"] = auto_corpus()["launches"]
     auto_launches["fast_parity"] = fast_parity()["launches"]
-    auto_launches["cluster_corpus"] = cluster_corpus()["launches"]
+    cluster = cluster_corpus()
+    auto_launches["cluster_corpus"] = cluster["launches"]
     auto_launches["ivf_parity"] = ivf_parity()["launches"]
     with tempfile.TemporaryDirectory() as tmp:
         auto_launches["seeded_and_state"] = seeded_and_state(tmp)["launches"]
@@ -2521,15 +3010,22 @@ def main() -> int:
         "slab_cols": sweep["plan_slab_cols"],
         "l2_budget_bytes": sweep["l2_budget_bytes"],
         "slab_sweep_ms": sweep["ms"],
+        "slab_sweeps": {str(row["n"]): {key: row[key] for key in (
+            "plan_slab_cols", "fastest_slab_cols", "plan_over_fastest", "ms")}
+            for row in (sweep, sweep_mid, cluster["sweep"], big["sweep"])},
+        "slab_sweeps_1m_chunk_widths": {str(row["d"]): {key: row[key] for key in (
+            "plan_slab_cols", "fastest_slab_cols", "plan_over_fastest", "ms")}
+            for row in big["chunk_sweeps"]},
         "slab_stream_only_ms": sweep["stream_only_ms"],
         "bench_graph_ms": win_timing["k1_ms"],
         "bench_graph_full_width_ms": win_timing["k1_full_width_ms"],
         "ptxas": k1_ptxas(libs["spmv"]["ptxas"]),
         "launches_per_settle": settle_launches,
         "launches_serving": serving,
+        "launches_service": service_launches,
         "launches_auto": auto_launches,
         "gather_ceiling_ms": main_row["gather_ceiling_ms"],
-        "per_shape": rows + narrow + [corpus_batch["k1_row"]],
+        "per_shape": rows + narrow + [corpus_batch["k1_row"], big["k1_full"]],
         "launches_chunked": {**big["launches"], **{
             f"windowed_{tag}": val["K1"]
             for tag, val in wchunk["launches"].items() if "K1" in val}},

@@ -24,10 +24,11 @@
 // the feature dimension in column slabs.  One launch covers work items
 // (slab, row tile), numbered slab first, so the blocks in flight at any
 // moment all read one slab: columns [s*S, s*S + S) of every row.  The slab
-// width S comes from the wrapper (`slab_plan` in ops/kernels/spmv.py), sized
-// so that the slab of X plus idx and wn fit about half the L2; each slab is
-// then read from HBM about once and gathered K times from L2.  When all of X
-// fits (e.g. 5000 x 128), S = D and the walk is the whole-row one.  `out` is
+// width S comes from the wrapper (`slab_plan` in ops/kernels/spmv.py): 32
+// columns, the fastest width the card's sweeps found from 131072 to 1M rows
+// of 768, whether or not a slab with idx and wn fits the L2 (where it does,
+// each slab is read from HBM about once and gathered K times from L2).  When
+// all of X fits (e.g. 5000 x 128), S = D and the walk is the whole-row one.  `out` is
 // written with streaming (evict-first) stores so it does not push the slab
 // out of L2.  Slabbing changes no element's arithmetic: every element is
 // still X[i] less the K products in slot order, the same bits at every S.

@@ -6,8 +6,8 @@ the kernel and how the design answers it).  Beside it:
 
 * ``lap_matvec_ref`` — the plain PyTorch version, the same K-ordered
   arithmetic.  The CPU path and the card-side checks use it.
-* ``slab_plan`` — the kernel's column-slab width: the widest slab of X that
-  fits, with idx and wn, in half the card's L2 (all of D when X fits).
+* ``slab_plan`` — the kernel's column-slab width: all of D when X fits,
+  with idx and wn, in half the card's L2, else `SLAB_COLS`.
 * ``lap_matvec_cuda`` — the wrapper: checks its inputs, allocates the
   output, launches on the current stream with the plan's slab width and
   raises if the launch failed.  ``launches`` counts its kernel launches, so
@@ -27,8 +27,8 @@ import torch
 
 from .build import load_library
 
-__all__ = ["device_l2_bytes", "l2_budget", "lap_matvec_cuda", "lap_matvec_ref", "launches",
-           "slab_plan"]
+__all__ = ["SLAB_COLS", "device_l2_bytes", "l2_budget", "lap_matvec_cuda", "lap_matvec_ref",
+           "launches", "slab_plan"]
 
 launches = 0
 """Kernel launches made by `lap_matvec_cuda` since the count was last reset."""
@@ -48,18 +48,22 @@ def l2_budget(l2_bytes: int) -> int:
     return l2_bytes // 2
 
 
+SLAB_COLS = 32
+"""K1's slab width when X does not fit `l2_budget`: the fastest width of the
+sweeps on the H100 at every size measured, 131072, 262144, 524288 and
+1,000,000 rows of 768 columns with k = 8, whether or not a slab and idx
+and wn fit the L2 (PERF.md §6).  A row's 32 columns are one 128-byte line
+for each of its K gathers."""
+
+
 def slab_plan(n: int, d: int, k: int, l2_bytes: int) -> int:
     """Columns per slab for K1 on an [N, D] X with K slots a row, on a card
-    with ``l2_bytes`` of L2: D when X (N*D*4 bytes) and idx plus wn (N*K*8)
-    fit `l2_budget`, else the widest slab whose N*S*4 bytes fit beside idx
-    and wn, a multiple of 4 when D is (the kernel's float4 path), never
-    below 4 (1 when D % 4 != 0) nor above D."""
-    budget = l2_budget(l2_bytes)
-    if n * d * 4 + n * k * 8 <= budget:
+    with ``l2_bytes`` of L2: D, one slab, when X (N*D*4 bytes) and idx plus
+    wn (N*K*8) fit `l2_budget`; else `SLAB_COLS`, or D when that is
+    narrower."""
+    if n * d * 4 + n * k * 8 <= l2_budget(l2_bytes):
         return d
-    step = 4 if d % 4 == 0 else 1
-    cols = (budget - n * k * 8) // (n * 4) // step * step
-    return min(d, max(step, cols))
+    return min(d, SLAB_COLS)
 
 
 @functools.cache

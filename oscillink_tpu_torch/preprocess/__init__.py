@@ -1,3 +1,3 @@
-"""Query-time preprocessors: diffusion gates."""
+"""Query-time preprocessors: diffusion gates and typo autocorrect."""
 
 from .diffusion import compute_diffusion_gates  # noqa: F401

@@ -121,18 +121,24 @@ def _slabs(d, width):
     [
         (131072, 768, 8, H100_L2),  # the corpus: 24 slabs of 32
         (5000, 128, 6, H100_L2),  # the headline: X fits, one slab
-        (131072, 97, 8, H100_L2),  # D % 4 != 0: the scalar path
+        (131072, 97, 8, H100_L2),  # D % 4 != 0: the scalar path, a ragged last slab
         (131072, 130, 8, H100_L2),
-        (4099, 3, 5, 4099 * 3 * 4 + 4099 * 5 * 8),  # D = 3 past a forced budget
+        (4099, 3, 5, 4099 * 3 * 4 + 4099 * 5 * 8),  # D = 3 past a forced budget: one slab
         (4099, 3, 5, 2 * (4099 * 3 * 4 + 4099 * 5 * 8)),  # D = 3 just fitting
         (1000, 768, 1, 2 * 2**20),  # K = 1, forced small budget
         (1000, 768, 40, 2 * 2**20),  # K = 40: idx and wn take most of it
-        (1000, 768, 40, 0),  # nothing fits: the narrowest slab
+        (1000, 768, 40, 0),  # nothing fits: slabs of 32 all the same
         (1000, 97, 40, 0),
         (262144, 768, 8, H100_L2),
+        (1_000_000, 768, 8, H100_L2),  # idx and wn alone past the budget
+        (1_000_000, 192, 8, H100_L2),  # the 1M chunk widths (c = 4, 8)
+        (1_000_000, 96, 8, H100_L2),
     ],
 )
 def test_slab_plan_covers_the_columns_once_and_fits_the_budget(n, d, k, l2):
+    """One slab of D where X and idx/wn fit the budget, else slabs of
+    SLAB_COLS (D if narrower); every column in exactly one slab, and a
+    float4 multiple wherever D is one."""
     width = spmv.slab_plan(n, d, k, l2)
     budget = spmv.l2_budget(l2)
     assert 1 <= width <= d
@@ -143,42 +149,49 @@ def test_slab_plan_covers_the_columns_once_and_fits_the_budget(n, d, k, l2):
     if n * d * 4 + n * k * 8 <= budget:
         assert width == d
     else:
-        narrowest = 4 if d % 4 == 0 else 1
-        assert width < d
-        assert width == narrowest or n * width * 4 + n * k * 8 <= budget
-        # the widest such slab: one more step would not fit
-        assert n * (width + narrowest) * 4 + n * k * 8 > budget
+        assert width == min(d, spmv.SLAB_COLS)
 
 
 def test_slab_plan_at_the_h100_shapes():
     assert spmv.slab_plan(131072, 768, 8, H100_L2) == 32
     assert spmv.slab_plan(5000, 128, 6, H100_L2) == 128
     assert spmv.l2_budget(H100_L2) == 25 * 2**20
+    assert spmv.SLAB_COLS == 32
+
+
+@pytest.mark.parametrize("n", [196608, 262144, 327680, 524288, 1_000_000])
+def test_slab_plan_pins_the_large_n_widths(n):
+    """Past ~200k rows the plan once narrowed to the slab that fit beside
+    idx and wn (16 at 196608, 8 at 262144, its floor of 4 from 327680 on);
+    the card's sweeps put the fastest width at 32 there (PERF.md §6)."""
+    assert spmv.slab_plan(n, 768, 8, H100_L2) == 32
 
 
 @pytest.mark.parametrize("d,k", [(768, 8), (97, 8), (130, 1), (3, 40)])
 def test_slab_width_shrinks_as_n_grows_and_is_never_zero(d, k):
-    widths = [spmv.slab_plan(n, d, k, H100_L2) for n in (1, 1000, 8192, 65536, 131072, 1 << 20)]
+    ns = (1, 1000, 8192, 65536, 131072, 1 << 20, 4 << 20)
+    widths = [spmv.slab_plan(n, d, k, H100_L2) for n in ns]
     assert all(w >= 1 for w in widths)
     assert widths == sorted(widths, reverse=True)
     assert widths[0] == d
+    assert widths[-1] == min(d, spmv.SLAB_COLS)
 
 
 @pytest.mark.parametrize(
-    "n,d,k,l2",
+    "n,d,k,width",
     [
-        (300, 64, 6, 2 * (300 * 16 * 4 + 300 * 6 * 8)),  # 4 slabs of 16
-        (4099, 97, 5, 2 * (4099 * 10 * 4 + 4099 * 5 * 8)),  # 10 columns, ragged last slab
-        (333, 130, 1, 0),  # D % 4 != 0 and nothing fits: slabs of one column
-        (1000, 64, 40, 0),  # K past a warp's lanes, narrowest float4 slab
-        (200, 48, 3, H100_L2),  # fits: one slab
+        (300, 64, 6, 16),  # 4 slabs of 16
+        (4099, 97, 5, 10),  # 10 columns, ragged last slab
+        (333, 130, 1, 1),  # D % 4 != 0: slabs of one column
+        (1000, 64, 40, 4),  # K past a warp's lanes, narrowest float4 slab
+        (1000, 97, 8, spmv.SLAB_COLS),  # the plan's slab, ragged last slab
+        (200, 48, 3, 48),  # one slab
     ],
 )
-def test_plain_version_slab_by_slab_equals_the_whole_width(n, d, k, l2):
+def test_plain_version_slab_by_slab_equals_the_whole_width(n, d, k, width):
     _, gt, X = _shared(n, d, k, seed=d)
     Xt = torch.from_numpy(X)
     whole = spmv.lap_matvec_ref(gt.idx, gt.wn, Xt)
-    width = spmv.slab_plan(n, d, k, l2)
     parts = [spmv.lap_matvec_ref(gt.idx, gt.wn, Xt[:, c0:c1]) for c0, c1 in _slabs(d, width)]
     assert len(parts) == -(-d // width)
     assert torch.equal(torch.cat(parts, dim=1), whole)
