@@ -71,6 +71,23 @@ through the public entry points:
   into parse, lattice and encode; each response held against the service
   on the CPU; and the quickstart /v1/settle through the aiohttp binding on
   127.0.0.1 when aiohttp is installed.
+* the service's native small-N route (``native_route``) at the deploy
+  image's ``OSCILLINK_NATIVE_SMALL_N=2048`` with a 2048 x 768 x k8 request
+  on /v1/settle, /v1/bundle (MMR and rerank), /v1/chain/receipt and
+  /v1/settle/batch: native against the same service's device route (the
+  JAX package's bars) and against the native route of the service on the
+  CPU (equal bodies apart from timings), warm host ms of both routes;
+* the CLI (``cli_corpus``): ``settle`` with a bundle and the debug report
+  on a 131072 x 768 .npz in this process against the same flow through the
+  library, and ``python -m oscillink_tpu_torch.cli settle --diffusion
+  --rerank`` in fresh processes on the card and on the CPU; the profiler
+  (``profiling``: a Chrome trace of a corpus settle holds K1's kernel,
+  ``device_memory_stats`` against ``max_memory_allocated``); text ingestion
+  (``texts``: ``from_texts`` on the repo's synth3k corpus through the hash
+  embeddings and the registry's LSA provider, card against CPU); and the
+  checkpoint of the ``million`` lattice (``checkpoint_million``: saved,
+  restored on the card with no graph build, bit-equal, the same
+  iterations and ΔH).
 
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
@@ -86,9 +103,11 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -103,6 +122,8 @@ import numpy as np
 import torch
 
 from oscillink_tpu_torch import Oscillink, compute_diffusion_gates
+from oscillink_tpu_torch import cli as tcli
+from oscillink_tpu_torch.adapters.registry import resolve_provider
 from oscillink_tpu_torch.benchmarks import probe_bucket_gather as probe
 from oscillink_tpu_torch.core import lattice as tlattice
 from oscillink_tpu_torch.core.lattice import _locality_order
@@ -126,6 +147,8 @@ from oscillink_tpu_torch.service import LocalClient, create_state
 from oscillink_tpu_torch.service import api as tapi
 from oscillink_tpu_torch.service import config as tconfig
 from oscillink_tpu_torch.service.warmup import run_warmup
+from oscillink_tpu_torch.utils.debug_report import generate_debug_report
+from oscillink_tpu_torch.utils.profiling import device_memory_stats, trace as profiler_trace
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -217,6 +240,17 @@ WINDOWED_CHUNKED = (("2", "1", "K4"), ("2", "0", "K3"), ("8", "1", "K2"))
 FLAGSHIP = dict(n=5000, d=768, k=8, q=8, ragged=(500, 1000, 2000, 4000), chain=[2, 5, 7, 9])
 SERVICE_WARM_CALLS = 3
 SERVICE_SECRET = "chip-smoke-receipt-secret"
+# the service's native route at the deploy image's threshold (docs/
+# CLOUD_ARCHITECTURE.md: OSCILLINK_NATIVE_SMALL_N=2048), with the largest
+# request it routes; its bars against the device route are the JAX package's
+# (tests/test_native_service_path.py)
+NATIVE = dict(n=2048, d=768, k=8, q=8, bundle_k=8, chain=[2, 5, 7, 9], threshold="2048")
+NATIVE_DH_ABS, NATIVE_DH_REL = 1e-2, 5e-3
+NATIVE_Z_ABS, NATIVE_Z_REL = 2e-3, 2e-3
+NATIVE_TIMING_KEYS = ("timings_ms", "t_ms", "last_settle_ms", "request_id")
+SYNTH3K = os.path.join("benchmarks", "data", "beir", "synth3k")
+TEXTS = dict(docs=3000, k=8, hash_dim=384, lsa_dim=64)
+K1_SYMBOL = "spmv_gather_kernel"  # csrc/spmv.cu's __global__
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2226,9 +2260,14 @@ def million() -> dict:
             t0 = time.perf_counter()
             cg_form(lat, form, lambda: lat._solve_ustar_device(use_cache=False))
             turn_ms[form].append(sync_ms(t0))
+    # the checkpoint: saved from this lattice, restored once it is freed
+    saved = checkpoint_save(lat)
     # K1 against its plain version at the chunk widths on this graph
     g = lat.graph
     del lat, U_start
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_restore(saved, g, full, ref)
+    del saved
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(5)
     k1_rows, chunk_sweeps = [], []
@@ -2253,7 +2292,7 @@ def million() -> dict:
     launches = {f"{run}_{key}": runs[run][key]["launches"]["K1"]
                 for run in runs for key in ("settle", "ustar", "receipt")}
     return {"launches": launches, "k1_rows": k1_rows, "k1_full": k1_full, "sweep": sweep,
-            "chunk_sweeps": chunk_sweeps}
+            "chunk_sweeps": chunk_sweeps, "checkpoint": ckpt}
 
 
 def window_chunk_kernels(lat: Oscillink, widths: dict) -> list:
@@ -2775,6 +2814,448 @@ def http_settle(app, data: bytes) -> dict:
             "body": body}
 
 
+# -- the CLI, the checkpoint, the native route, text ingestion and
+# profiling ---------------------------------------------------------------
+
+
+def cli_corpus(tmp: str) -> dict:
+    """`oscillink_tpu_torch.cli` at the corpus tier: ``settle`` with a
+    bundle and the debug report on a 131072 x 768 .npz, in this process,
+    against the same flow through the library on the card (identical
+    state_sig, iterations, null points and bundle ids, ΔH within
+    LATTICE_TOL; K1's launches equal to the library flow's, whose settle
+    and receipt part is r0 + one an iteration in settle and U* plus one
+    for the full receipt).  Then ``python -m oscillink_tpu_torch.cli
+    settle --diffusion --rerank`` at the quickstart size in a subprocess on
+    the card and one with ``--device cpu``: both exit 0 and print the same
+    JSON, the state signature equal exactly when the two devices' gates
+    round alike at 1e-6 (ROADMAP.md queue C)."""
+    n, d, k = CORPUS["n"], CORPUS["d"], CORPUS["k"]
+    Y, psi = data(n, d)
+    path = os.path.join(tmp, "corpus.npz")
+    np.savez(path, Y=Y, psi=psi)
+    html = os.path.join(tmp, "cli_report.html")
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tcli.main(["settle", path, "--kneighbors", str(k), "--bundle-k", "10",
+                        "--debug-report", html])
+    command_ms = sync_ms(t0)
+    cli_launches = spmv.launches
+    check(rc == 0, f"cli settle exited {rc}")
+    out = json.loads(buf.getvalue())
+    html_bytes = os.path.getsize(html)
+    # the same flow through the library: settle, full receipt, bundle, report
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = Oscillink(Y, kneighbors=k)
+    lat.set_query(psi)
+    lat.set_receipt_detail("full")
+    st = lat.settle(max_iters=12, tol=1e-3)
+    rec = lat.receipt()
+    bundle = [e["id"] for e in lat.bundle(k=10, diversify=True)]
+    flow_ms = sync_ms(t0)
+    flow_launches = spmv.launches
+    t0 = time.perf_counter()
+    doc = generate_debug_report(lat, os.path.join(tmp, "library_report.html"))
+    report_ms = sync_ms(t0)
+    library_launches = spmv.launches
+    del lat
+    rel = abs(out["deltaH_total"] - rec["deltaH_total"]) / max(abs(rec["deltaH_total"]), 1e-30)
+    applies = (st["iters"] + 1) + (rec["meta"]["ustar_iters"] + 1) + 1
+    row = {**CORPUS, "command_ms": command_ms, "debug_report_ms": report_ms,
+           "library_flow_ms": flow_ms, "html_bytes": html_bytes,
+           "library_html_bytes": len(doc.encode()), "cli": out, "deltaH_rel": rel,
+           "k1_launches_cli": cli_launches, "k1_launches_library": library_launches,
+           "k1_launches_settle_receipt": flow_launches, "operator_applies": applies,
+           "k1_launches_report": library_launches - flow_launches}
+    emit("cli_corpus", **row)
+    check(out["state_sig"] == rec["meta"]["state_sig"], "cli state_sig differs from the library's")
+    check(out["settle"]["iters"] == st["iters"], "cli settle iterations differ")
+    check(out["null_points"] == len(rec["null_points"]), "cli null points differ")
+    check(out["bundle"] == bundle, f"cli bundle {out['bundle']} vs library {bundle}")
+    check(rel <= LATTICE_TOL, f"cli deltaH differs from the library's by {rel}")
+    check(flow_launches == applies, f"library flow: K1 launches {flow_launches} != {applies}")
+    check(cli_launches == library_launches and cli_launches > applies,
+          f"cli K1 launches {cli_launches} vs the library flow and report's {library_launches}")
+    check(doc.startswith("<!DOCTYPE html>") and html_bytes > 0, "debug report not written")
+
+    # the module entry point in fresh processes, card and CPU, quickstart size
+    Yq, psiq = quick_inputs()
+    qpath = os.path.join(tmp, "quick.npz")
+    np.savez(qpath, Y=Yq, psi=psiq)
+    argv = [sys.executable, "-m", "oscillink_tpu_torch.cli", "settle", qpath, "--diffusion",
+            "--rerank", "--bundle-k", "6"]
+    runs = {}
+    for dev, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv + extra, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        runs[dev] = {"rc": proc.returncode, "ms": 1e3 * (time.perf_counter() - t0),
+                     "stderr_tail": proc.stderr[-400:]}
+        check(proc.returncode == 0, f"python -m oscillink_tpu_torch.cli on {dev}: {proc.stderr}")
+        runs[dev]["out"] = json.loads(proc.stdout)
+    rounding = diffusion_rounding(Yq, psiq, 6, {"beta": 1.0, "gamma": 0.1})
+    gpu, cpu = runs["cuda"]["out"], runs["cpu"]["out"]
+    sub_rel = abs(gpu["deltaH_total"] - cpu["deltaH_total"]) / max(abs(cpu["deltaH_total"]), 1e-30)
+    emit("cli_subprocess", **QUICK, runs=runs, rounding=rounding, deltaH_rel=sub_rel)
+    check(gpu.keys() == cpu.keys(), "cli subprocess: JSON keys differ")
+    check(gpu["settle"]["iters"] == cpu["settle"]["iters"], "cli subprocess: iterations differ")
+    check(sub_rel <= LATTICE_TOL, f"cli subprocess: deltaH differs by {sub_rel}")
+    for key in ("null_points", "bundle"):
+        check(gpu[key] == cpu[key], f"cli subprocess: {key} card {gpu[key]} vs CPU {cpu[key]}")
+    check((gpu["state_sig"] == cpu["state_sig"]) == rounding["rounded_alike"],
+          f"cli subprocess: state_sig equality vs gates rounding alike: {rounding}")
+    return {"launches": cli_launches, "command_ms": command_ms, "debug_report_ms": report_ms,
+            "html_bytes": html_bytes}
+
+
+@contextlib.contextmanager
+def graph_builds():
+    """Counts the lattice's graph builds (`Oscillink._build_graph_device`,
+    which every build of the constructor goes through) in the block."""
+    count = [0]
+    saved = Oscillink._build_graph_device
+
+    def counted(self, *args, **kwargs):
+        count[0] += 1
+        return saved(self, *args, **kwargs)
+
+    Oscillink._build_graph_device = counted
+    try:
+        yield count
+    finally:
+        Oscillink._build_graph_device = saved
+
+
+def checkpoint_dir(need: int) -> str:
+    """A directory with room for a checkpoint of ``need`` bytes: the
+    temporary directory, else the checkout's ignored ``build/``."""
+    for where in (tempfile.gettempdir(), os.path.join(ROOT, "build")):
+        os.makedirs(where, exist_ok=True)
+        if shutil.disk_usage(where).free > 2 * need:
+            return tempfile.mkdtemp(prefix="oscillink_ckpt_", dir=where)
+    raise RuntimeError(f"no directory with {2 * need} bytes free for the checkpoint")
+
+
+def checkpoint_save(lat: Oscillink) -> dict:
+    """`save_checkpoint` of the million lattice, and what its restore is
+    held to: host copies of Y, psi and the gates, the state signature and
+    the adjacency fingerprint."""
+    where = checkpoint_dir(lat.Y.nbytes)
+    path = os.path.join(where, "million.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat.save_checkpoint(path)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    return {"dir": where, "path": path, "save_ms": save_ms, "file_bytes": os.path.getsize(path),
+            "Y": lat.Y, "psi": lat.psi.copy(), "B": lat.B_diag.copy(),
+            "state_sig": lat._signature(), "fingerprint": lat.adjacency_fingerprint()}
+
+
+def checkpoint_restore(saved: dict, g, full: dict, ref: dict) -> dict:
+    """`from_checkpoint` of the million lattice on the card, after the
+    original is freed: no graph build; Y, psi, the gates and the four graph
+    tensors bit-equal to the original's (``g``), the same state signature
+    and fingerprint; then settle, U* and the full receipt (`solve_steps`,
+    launches = applies) with the original's iterations (``full``) and its
+    receipt (``ref``) to LATTICE_TOL on ΔH and equal null points.  The
+    file is deleted afterwards."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        with graph_builds() as builds:
+            back = Oscillink.from_checkpoint(saved["path"])
+        load_ms = sync_ms(t0)
+        load_peak = torch.cuda.max_memory_allocated()
+        load_launches = spmv.launches
+        equal = {
+            "Y": bool(np.array_equal(back.Y, saved["Y"])),
+            "psi": back.psi.tobytes() == saved["psi"].tobytes(),
+            "B_diag": back.B_diag.tobytes() == saved["B"].tobytes(),
+            **{name: bool(torch.equal(a, b)) for name, a, b in zip(
+                ("idx", "w", "wn", "sqrt_deg"), back.graph, g)},
+        }
+        sig, fp = back._signature(), back.adjacency_fingerprint()
+        steps = solve_steps(back)
+        got = receipt_values(steps["rec"])
+        rows = {key: step_row(steps[key], saved["Y"].nbytes) for key in ("settle", "ustar",
+                                                                          "receipt")}
+        rel = abs(got["deltaH"] - ref["deltaH"]) / max(abs(ref["deltaH"]), 1e-30)
+        launches = sum(steps[key]["launches"]["K1"] for key in ("settle", "ustar", "receipt"))
+        del back, steps
+    finally:
+        shutil.rmtree(saved["dir"], ignore_errors=True)
+    row = {"save_ms": saved["save_ms"], "load_ms": load_ms, "file_bytes": saved["file_bytes"],
+           "graph_builds": builds[0], "load_peak_bytes": load_peak,
+           "load_k1_launches": load_launches, "bit_equal": equal,
+           "state_sig_equal": sig == saved["state_sig"],
+           "fingerprint_equal": fp == saved["fingerprint"], "receipt_values": got,
+           "deltaH_rel": rel, "k1_launches": launches, **rows,
+           "peak_bytes": max(r["peak_gb"] for r in rows.values()) * 1e9,
+           "file_deleted": not os.path.exists(saved["path"])}
+    emit("checkpoint_million", **MILLION, **row)
+    check(builds[0] == 0, f"from_checkpoint built {builds[0]} graphs")
+    check(all(equal.values()), f"restored state not bit-equal: {equal}")
+    check(sig == saved["state_sig"] and fp == saved["fingerprint"],
+          "restored state_sig or fingerprint differs")
+    for key in ("settle", "ustar"):
+        check(rows[key]["iters"] == full[key]["iters"],
+              f"restored {key}: {rows[key]['iters']} iterations vs {full[key]['iters']}")
+    check(rel <= LATTICE_TOL, f"restored deltaH differs by {rel}")
+    check(got["null_points"] == ref["null_points"], "restored null points differ")
+    return row
+
+
+def native_request(client: LocalClient, path: str, data: bytes) -> tuple:
+    """`service_call` with the bundle cache emptied first, so every call
+    runs its settle."""
+    client.state.bundle_cache = tapi.BundleCache()
+    return service_call(client, path, data)
+
+
+def untimed(body):
+    if isinstance(body, dict):
+        return {k: untimed(v) for k, v in body.items() if k not in NATIVE_TIMING_KEYS}
+    if isinstance(body, list):
+        return [untimed(v) for v in body]
+    return body
+
+
+def native_vs_device(tag: str, route: str, nat: dict, dev: dict) -> dict:
+    """The native route's response against the device route's, with the
+    JAX package's bars (tests/test_native_service_path.py): the same
+    state_sig, ΔH within max(NATIVE_DH_ABS, NATIVE_DH_REL |ΔH|), the same
+    bundle ids, the same chain verdict and z_struct within
+    max(NATIVE_Z_ABS, NATIVE_Z_REL |z|)."""
+    out = {}
+    if "state_sig" in dev:
+        check(nat["state_sig"] == dev["state_sig"], f"{tag}: state_sig differs")
+    if route == "settle":
+        dn, dd = nat["receipt"]["deltaH_total"], dev["receipt"]["deltaH_total"]
+        out["deltaH_gap"] = abs(dn - dd)
+        check(abs(dn - dd) <= max(NATIVE_DH_ABS, NATIVE_DH_REL * abs(dd)),
+              f"{tag}: deltaH native {dn} vs device {dd}")
+        check(nat["receipt"]["meta"]["backend"] == "native", f"{tag}: receipt backend")
+    if "bundle" in dev:
+        check([e["id"] for e in nat["bundle"]] == [e["id"] for e in dev["bundle"]],
+              f"{tag}: bundle ids differ")
+    if "bundles" in dev:
+        for qn, qd in zip(nat["bundles"], dev["bundles"]):
+            check([e["id"] for e in qn] == [e["id"] for e in qd], f"{tag}: batch bundle ids")
+    if "chain_receipt" in dev:
+        cn, cd = nat["chain_receipt"], dev["chain_receipt"]
+        check(cn["verdict"] == cd["verdict"], f"{tag}: chain verdict differs")
+        gaps = [abs(en["z_struct"] - ed["z_struct"]) for en, ed in zip(cn["edges"], cd["edges"])]
+        out["z_struct_gap"] = max(gaps)
+        for en, ed in zip(cn["edges"], cd["edges"]):
+            check(abs(en["z_struct"] - ed["z_struct"]) <= max(NATIVE_Z_ABS,
+                                                               NATIVE_Z_REL * abs(ed["z_struct"])),
+                  f"{tag}: z_struct native {en['z_struct']} vs device {ed['z_struct']}")
+    return out
+
+
+def native_route() -> dict:
+    """The service's native route at the image's threshold
+    (``OSCILLINK_NATIVE_SMALL_N=2048``) with a 2048 x 768 x k8 request on
+    every route it serves: /v1/settle (receipt and bundle), /v1/bundle
+    (MMR and rerank), /v1/chain/receipt and /v1/settle/batch (Q = 8).  Each
+    is served natively by the card's service (threshold 2048), by the
+    same service's device route (threshold 0) and natively by the service
+    on the CPU: the native answers of the two services must be equal apart
+    from timing fields, and native against device must meet the JAX
+    package's bars (`native_vs_device`).  A cold and SERVICE_WARM_CALLS
+    warm calls on each route for each of the card's routes, host ms split
+    as `service_call` splits them; the native route launches no kernel.
+    One more /v1/bundle call with the cache kept shows a hit skipping the
+    settle."""
+    n, d, k, q = NATIVE["n"], NATIVE["d"], NATIVE["k"], NATIVE["q"]
+    Y, psi = data(n, d, seed=7)
+    base = {"Y": Y.tolist(), "psi": psi.tolist(), "params": {"kneighbors": k}}
+    opts = {"max_iters": 12, "tol": 1e-3}
+    requests = {
+        "settle": ("/v1/settle", {**base, "options": {**opts, "include_receipt": True,
+                                                      "bundle_k": NATIVE["bundle_k"]}}),
+        "bundle_mmr": ("/v1/bundle", {**base, "options": opts, "bundle_k": NATIVE["bundle_k"]}),
+        "bundle_rerank": ("/v1/bundle", {**base, "options": opts, "bundle_k": NATIVE["bundle_k"],
+                                         "diversify": False}),
+        "chain_receipt": ("/v1/chain/receipt", {**base, "options": opts,
+                                                "chain": NATIVE["chain"]}),
+        "batch": ("/v1/settle/batch", {"Y": base["Y"], "psis": queries(Y, q).tolist(),
+                                       "params": base["params"], "bundle_k": NATIVE["bundle_k"]}),
+    }
+    tconfig.get_settings.cache_clear()
+    with env(OSCILLINK_NATIVE_SMALL_N=NATIVE["threshold"]):
+        t0 = time.perf_counter()
+        card = LocalClient(create_state())  # builds the engine: g++ at first use
+        startup_ms = 1e3 * (time.perf_counter() - t0)
+        cpu = LocalClient(create_state(device="cpu"))
+    out, launches = {}, {}
+    for route, (path, payload) in requests.items():
+        data_bytes = json.dumps(payload).encode()
+        rows = {}
+        for mode, threshold in (("native", NATIVE["threshold"]), ("device", "0")):
+            with env(OSCILLINK_NATIVE_SMALL_N=threshold):
+                cold = native_request(card, path, data_bytes)[1]
+                warm = [native_request(card, path, data_bytes)
+                        for _ in range(SERVICE_WARM_CALLS)]
+            rows[mode] = {"body": warm[-1][0], "cold_ms": cold["ms"],
+                          "warm_ms": [r["ms"] for _, r in warm],
+                          **{key: statistics.median(r[key] for _, r in warm)
+                             for key in ("ms", "parse_ms", "lattice_ms", "encode_ms")},
+                          "k1_launches": [r["k1_launches"] for _, r in warm]}
+        with env(OSCILLINK_NATIVE_SMALL_N=NATIVE["threshold"]):
+            body_cpu, cpu_row = native_request(cpu, path, data_bytes)
+        nat, dev = rows["native"].pop("body"), rows["device"].pop("body")
+        backend_nat = nat["meta"].get("backend")
+        backend_dev = dev["meta"].get("backend", "device")
+        held = native_vs_device(f"native_route {route}", route, nat, dev)
+        same_as_cpu = untimed(nat) == untimed(body_cpu)
+        out[route] = {"endpoint": path, "request_bytes": len(data_bytes), **held,
+                      "native": rows["native"], "device": rows["device"],
+                      "native_cpu_service_ms": cpu_row["ms"],
+                      "device_over_native_ms": rows["device"]["ms"] / rows["native"]["ms"],
+                      "device_over_native_lattice_ms": rows["device"]["lattice_ms"]
+                      / rows["native"]["lattice_ms"],
+                      "native_equals_cpu_service": same_as_cpu}
+        emit("native_route_endpoint", name=route, **out[route])
+        check(backend_nat == "native" and backend_dev == "device",
+              f"native_route {route}: backends {backend_nat} / {backend_dev}")
+        check(same_as_cpu, f"native_route {route}: card and CPU services' native answers differ")
+        check(all(x == 0 for x in rows["native"]["k1_launches"]),
+              f"native_route {route}: the native route launched K1")
+        check(all(x > 0 for x in rows["device"]["k1_launches"]),
+              f"native_route {route}: the device route did not launch K1")
+        launches[route] = rows["device"]["k1_launches"][-1]
+    # a bundle-cache hit on the native route: the state signature alone
+    with env(OSCILLINK_NATIVE_SMALL_N=NATIVE["threshold"]):
+        path, payload = requests["bundle_mmr"]
+        data_bytes = json.dumps(payload).encode()
+        native_request(card, path, data_bytes)
+        hit, hit_row = service_call(card, path, data_bytes)
+    check(hit["meta"]["cache"] == "HIT", "native_route: the repeated bundle missed the cache")
+    tconfig.get_settings.cache_clear()
+    emit("native_route", **NATIVE, engine_startup_ms=startup_ms, bundle_hit_ms=hit_row["ms"],
+         bundle_hit_lattice_ms=hit_row["lattice_ms"],
+         native_ms={r: out[r]["native"]["ms"] for r in out},
+         device_ms={r: out[r]["device"]["ms"] for r in out},
+         native_lattice_ms={r: out[r]["native"]["lattice_ms"] for r in out},
+         device_lattice_ms={r: out[r]["device"]["lattice_ms"] for r in out})
+    return {"launches": launches}
+
+
+def synth3k(n_docs: int) -> tuple:
+    """The repo's synth3k BEIR-format corpus (its first ``n_docs`` texts)
+    and its first query."""
+    with open(os.path.join(ROOT, SYNTH3K, "corpus.jsonl")) as f:
+        docs = [json.loads(line)["text"] for _, line in zip(range(n_docs), f)]
+    with open(os.path.join(ROOT, SYNTH3K, "queries.jsonl")) as f:
+        query = json.loads(f.readline())["text"]
+    return docs, query
+
+
+def text_flow(lat: Oscillink) -> dict:
+    st = lat.settle(max_iters=12, tol=1e-3)
+    rec = lat.receipt()
+    return {"deltaH": rec["deltaH_total"], "nulls": len(rec["null_points"]),
+            "state_sig": rec["meta"]["state_sig"], "settle_iters": st["iters"],
+            "ustar_iters": rec["meta"]["ustar_iters"],
+            "bundle": [e["id"] for e in lat.bundle(k=8)]}
+
+
+def texts_phase() -> dict:
+    """Text ingestion on the synth3k corpus (3000 documents, the first
+    query): ``Oscillink.from_texts`` through the hash embeddings (384) and
+    the registry's LSA provider (64), each on the card against the CPU to
+    the lattice bars.  Where the two devices' graph builds differ within
+    f32 rounding (near-tied similarities), the CPU lattice takes the
+    card's graph (``graph=``), as the windowed phases do."""
+    docs, query = synth3k(TEXTS["docs"])
+    out, launches = {}, {}
+    with env(OSCILLINK_DISABLE_ST="1"):
+        for provider in ("hash", "lsa"):
+            fit_ms = None
+            if provider == "hash":
+                make = lambda **kw: Oscillink.from_texts(  # noqa: E731
+                    docs, query=query, kneighbors=TEXTS["k"], embed_dim=TEXTS["hash_dim"], **kw)
+            else:
+                t0 = time.perf_counter()
+                emb = resolve_provider(f"lsa:{TEXTS['lsa_dim']}")
+                Y, psi = emb.embed(docs), emb.embed([query])[0]
+                fit_ms = 1e3 * (time.perf_counter() - t0)
+
+                def make(**kw):
+                    lat = Oscillink(Y, kneighbors=TEXTS["k"], **kw)
+                    lat.set_query(psi)
+                    return lat
+            reset_counts()
+            t0 = time.perf_counter()
+            card = make()
+            card_run = text_flow(card)
+            card_ms = sync_ms(t0)
+            k1 = spmv.launches
+            cpu = make(device="cpu")
+            slots = int((card.graph.idx.cpu() != cpu.graph.idx).sum())
+            if slots or not torch.equal(card.graph.w.cpu(), cpu.graph.w):
+                cpu = make(device="cpu", graph=card.graph)
+            cpu_run = text_flow(cpu)
+            rel = abs(card_run["deltaH"] - cpu_run["deltaH"]) / max(abs(cpu_run["deltaH"]), 1e-30)
+            # card_ms: the lattice (with the hash embeddings for from_texts)
+            # and its flow; lsa_fit_ms: the LSA fit and the query's embedding
+            out[provider] = {"N": card.N, "D": card.D, "lsa_fit_ms": fit_ms,
+                             "card_ms": card_ms, "k1_launches": k1,
+                             "graph_slots_differ": slots, "deltaH_rel": rel, "card": card_run}
+            emit("texts", provider=provider, **out[provider])
+            check(k1 > 0, f"texts {provider}: K1 was not launched")
+            check(rel <= LATTICE_TOL, f"texts {provider}: deltaH differs by {rel}")
+            for key in ("nulls", "state_sig", "settle_iters", "ustar_iters", "bundle"):
+                check(card_run[key] == cpu_run[key],
+                      f"texts {provider}: {key} card {card_run[key]} vs CPU {cpu_run[key]}")
+            launches[provider] = k1
+            del card, cpu
+    return {"launches": launches}
+
+
+def profiling_phase() -> dict:
+    """`utils.profiling` on the card: `trace` around a corpus settle writes
+    a Chrome trace that holds K1's kernel; `device_memory_stats` returns its
+    three keys, the peak at least the phase's `max_memory_allocated`."""
+    Y, psi = data(CORPUS["n"], CORPUS["d"])
+    lat = Oscillink(Y, kneighbors=CORPUS["k"])
+    lat.set_query(psi)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiler_trace(tmp):
+            lat.settle(max_iters=12, tol=1e-3)
+        traced_ms = sync_ms(t0)
+        trace_path = os.path.join(tmp, "trace.json")
+        trace_bytes = os.path.getsize(trace_path)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    k1_events = [e for e in events if K1_SYMBOL in str(e.get("name", ""))
+                 and e.get("cat") == "kernel"]
+    stats = device_memory_stats()
+    peak = torch.cuda.max_memory_allocated()
+    row = {"traced_settle_ms": traced_ms, "trace_bytes": trace_bytes, "events": len(events),
+           "k1_kernel_events": len(k1_events), "k1_launches": spmv.launches,
+           "k1_device_us": sum(float(e.get("dur", 0)) for e in k1_events),
+           "memory_stats": stats, "max_memory_allocated": peak,
+           "k1_kernel_name": k1_events[0]["name"] if k1_events else None}
+    emit("profiling", **CORPUS, **row)
+    check(len(k1_events) > 0 and spmv.launches > 0,
+          f"trace holds {len(k1_events)} K1 kernels for {spmv.launches} launches")
+    check(stats is not None and set(stats) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"},
+          f"device_memory_stats: {stats}")
+    check(stats["peak_bytes_in_use"] >= peak, f"peak {stats['peak_bytes_in_use']} < {peak}")
+    return {"launches": spmv.launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2866,10 +3347,12 @@ def main() -> int:
     quick = service_quickstart()
     flagship = service_flagship()
     http = service_http(quick["state"], quick["data"], quick["settle"])
+    native = native_route()
     service_launches = {
         **{f"quickstart {path}": val for path, val in quick["launches"].items()},
         **{f"flagship {key}": val for key, val in flagship["launches"].items()},
         "http /v1/settle": http.get("k1_launches"),
+        **{f"native_route device {route}": val for route, val in native["launches"].items()},
     }
     del quick, flagship
     torch.cuda.empty_cache()
@@ -2911,6 +3394,14 @@ def main() -> int:
     check(U.shape == (CORPUS["n"], CORPUS["d"]) and bool(np.isfinite(U).all()), "U not finite")
     check(np.isfinite(rec["deltaH_total"]) and rec["deltaH_total"] >= 0, "deltaH invalid")
     check(len(bundle) == 8 and len({b["id"] for b in bundle}) == 8, "bundle ids invalid")
+
+    # 6b. the CLI at the corpus tier (and as a module in fresh processes),
+    # torch.profiler around a corpus settle, text ingestion on synth3k
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_corpus(tmp)
+    prof = profiling_phase()
+    texts = texts_phase()
+    torch.cuda.empty_cache()
 
     # 7. K1 timing at the main path's shapes, then its slab widths swept at
     # the corpus shape
@@ -3024,6 +3515,10 @@ def main() -> int:
         "launches_serving": serving,
         "launches_service": service_launches,
         "launches_auto": auto_launches,
+        "launches_cli": cli["launches"],
+        "launches_checkpoint": big["checkpoint"]["k1_launches"],
+        "launches_texts": texts["launches"],
+        "launches_profiling": prof["launches"],
         "gather_ceiling_ms": main_row["gather_ceiling_ms"],
         "per_shape": rows + narrow + [corpus_batch["k1_row"], big["k1_full"]],
         "launches_chunked": {**big["launches"], **{

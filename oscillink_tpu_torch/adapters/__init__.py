@@ -1,4 +1,10 @@
-"""Input adapters: the text embedding helpers (the provider registry of
-``oscillink_tpu/adapters`` is not ported yet; ROADMAP.md queue A item 12)."""
+"""Input adapters: text embedding helpers + the provider registry."""
 
+from .registry import (  # noqa: F401
+    CachedEmbedder,
+    auto_detect,
+    available_providers,
+    register_provider,
+    resolve_provider,
+)
 from .text import embed_texts, simple_text_embed  # noqa: F401

@@ -10,13 +10,17 @@ absent from this module so the whole service is testable in-process
 (`testing.LocalClient`) and bindable to any HTTP server (`http.py`
 provides aiohttp).
 
-Every compute request is served by the lattice (``meta.backend`` is
-``"device"``).  The JAX service's other two routes, the small-N native
-host engine (``OSCILLINK_NATIVE_SMALL_N``) and the sharded mesh tier
-(``OSCILLINK_SHARDED_MIN_N``), are off there unless their thresholds are
-set above 0; they are not ported yet, so the port refuses to start with
-either set (`create_state`) and refuses a compute request if one was set
-since.
+Compute requests are served by the lattice (``meta.backend`` is
+``"device"``) or, with ``OSCILLINK_NATIVE_SMALL_N`` above 0, those of at
+most that many rows by the host C++ engine (``"native"``;
+`native_path`), at the JAX service's sites: settle, receipt, bundle,
+chain receipt, the settle batch and jobs.  The native engine is built when
+the service starts with the threshold set (`create_state` refuses to start
+if it does not build), or by the first request that needs it (a 503 naming
+the failure); the port never serves such a request from the lattice in its
+place.  The JAX service's sharded mesh tier (``OSCILLINK_SHARDED_MIN_N``)
+is not ported yet: the port refuses to start with it set and refuses a
+compute request if it was set since.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from pydantic import ValidationError
 
 from .. import __version__
 from ..core.lattice import OscillinkLattice
+from ..native import NativeEngine
 from ..preprocess.autocorrect import smart_correct
 from ..utils.device import DeviceLike, resolve_device
 from .billing import TIERS, price_map, tier_info
@@ -47,6 +52,7 @@ from .jobs import JobStore
 from .keystore import InMemoryKeyStore, KeyStore, make_keystore
 from .learners import Learners
 from .metrics import Metrics
+from . import native_path
 from .models import (
     AdminKeyUpdate,
     AutoCorrectRequest,
@@ -122,10 +128,9 @@ class ServiceState:
         self.webhooks = WebhookProcessor(self.keystore, self.cli_sessions)
 
 
-# thresholds that route requests off the lattice in the JAX service, and
-# the ROADMAP.md queue item that ports each route
+# thresholds that route requests off the lattice in the JAX service to a
+# route not ported yet, and the ROADMAP.md queue item that ports each
 _UNPORTED_ROUTES = (
-    ("OSCILLINK_NATIVE_SMALL_N", "the native host engine", "queue A item 12"),
     ("OSCILLINK_SHARDED_MIN_N", "the sharded mesh tier", "queue A item 11"),
 )
 
@@ -158,16 +163,24 @@ def _require_lattice_route() -> None:
 
 def create_state(device: DeviceLike = None) -> ServiceState:
     """A fresh service on ``device`` (``cuda`` unless given).  Raises
-    RuntimeError when a threshold of `_unported_routes` is set."""
+    RuntimeError when a threshold of `_unported_routes` is set, or when
+    ``OSCILLINK_NATIVE_SMALL_N`` is above 0 and the native engine does not
+    build."""
     lines = _unported_routes()
     if lines:
         raise RuntimeError("oscillink_tpu_torch.service: " + "; ".join(lines))
     # the kernels' build directory: with OSCILLINK_COMPILE_CACHE_DIR set, a
     # fresh serving process loads the nvcc products a previous one built
-    # there (the port's stand-in for the JAX service's persistent XLA cache)
+    # there (the port's stand-in for the JAX service's persistent XLA cache);
+    # the native engine is built there too
     from ..utils.compile_cache import configure_compile_cache
 
     configure_compile_cache()
+    if native_path.native_threshold() > 0:
+        try:
+            native_path.require_engine()
+        except ApiError as e:
+            raise RuntimeError(f"oscillink_tpu_torch.service: {e.detail}") from None
     return ServiceState(device)
 
 
@@ -566,37 +579,48 @@ def _settle_core(state: ServiceState, req: ApiRequest, include_receipt=None):
     Y_req, N, D, k_eff, eff, profile_id = _validate_and_overrides(
         state, sreq, ctx["api_key"]
     )
+    # routed before the charge: an engine that does not build is a 503
+    # that must not consume units
+    native = native_path.eligible(sreq, N)
     units = N * D
     monthly_ctx, remaining, limit, reset_at = _charge(state, ctx["api_key"], units)
 
     t0 = time.perf_counter()
+    graph_cache_status = None
     try:
-        lat, N, D, k_eff, eff, profile_id = _build_lattice(
-            state, sreq, ctx["api_key"],
-            pre=(Y_req, N, D, k_eff, eff, profile_id),
-        )
-        stats = lat.settle(
-            dt=sreq.options.dt, max_iters=sreq.options.max_iters,
-            tol=sreq.options.tol,
-        )
-        want_receipt = (
-            sreq.options.include_receipt
-            if include_receipt is None
-            else include_receipt
-        )
-        receipt = lat.receipt() if want_receipt else None
-        bundle = (
-            lat.bundle(
-                k=sreq.options.bundle_k,
-                diversify=sreq.options.bundle_diversify,
+        if native:
+            out = native_path.native_settle(sreq, eff, include_receipt=include_receipt)
+            stats = out["settle_stats"]
+            receipt, bundle, state_sig = out["receipt"], out["bundle"], out["state_sig"]
+            served_by = "native"
+        else:
+            lat, N, D, k_eff, eff, profile_id = _build_lattice(
+                state, sreq, ctx["api_key"],
+                pre=(Y_req, N, D, k_eff, eff, profile_id),
             )
-            if sreq.options.bundle_k
-            else None
-        )
-        state_sig = (
-            receipt.get("meta", {}).get("state_sig") if receipt else None
-        ) or lat._signature()
-        graph_cache_status = getattr(lat, "_graph_cache_status", None)
+            stats = lat.settle(
+                dt=sreq.options.dt, max_iters=sreq.options.max_iters,
+                tol=sreq.options.tol,
+            )
+            want_receipt = (
+                sreq.options.include_receipt
+                if include_receipt is None
+                else include_receipt
+            )
+            receipt = lat.receipt() if want_receipt else None
+            bundle = (
+                lat.bundle(
+                    k=sreq.options.bundle_k,
+                    diversify=sreq.options.bundle_diversify,
+                )
+                if sreq.options.bundle_k
+                else None
+            )
+            state_sig = (
+                receipt.get("meta", {}).get("state_sig") if receipt else None
+            ) or lat._signature()
+            served_by = "device"
+            graph_cache_status = getattr(lat, "_graph_cache_status", None)
         state.metrics.settle_counter.labels(status="ok").inc()
     except ApiError:
         raise
@@ -649,7 +673,7 @@ def _settle_core(state: ServiceState, req: ApiRequest, include_receipt=None):
                 "P": sreq.params.lamP,
             },
             "profile_id": profile_id,
-            "backend": "device",
+            "backend": served_by,
             "graph_cache": graph_cache_status,
             "diffusion": (
                 {"beta": sreq.diffusion.beta, "gamma": sreq.diffusion.gamma}
@@ -701,6 +725,11 @@ def h_bundle(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
         breq.gates is not None or _diffusion_requested(breq), ctx["features"]
     )
     _validate_diffusion(breq)
+
+    # small-N bundles serve on the native host path (both MMR and rerank
+    # modes are implemented in the engine), mirroring the settle routing
+    if native_path.eligible(breq, len(breq.Y)):
+        return _bundle_native(state, ctx, breq)
 
     # validate (cheap) -> charge -> build: an over-quota client must not be
     # able to force the O(N^2 D) graph scan before its 429
@@ -756,6 +785,52 @@ def h_bundle(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     return resp
 
 
+def _bundle_native(state: ServiceState, ctx: dict, breq) -> ApiResponse:
+    """/v1/bundle on the native engine.  Its state signature (the bundle
+    cache's key) comes from `native_path.native_prepare` alone, so a cache
+    hit runs no settle."""
+    Y, N, D, k_eff, eff, profile_id = _validate_and_overrides(state, breq, ctx["api_key"])
+    units = N * D
+    monthly_ctx, remaining, limit, reset_at = _charge(state, ctx["api_key"], units)
+    breq.options.bundle_k = breq.bundle_k
+    breq.options.bundle_diversify = breq.diversify
+    t_prep = time.perf_counter()
+    prep = native_path.native_prepare(breq, eff)
+    prep_ms = 1000.0 * (time.perf_counter() - t_prep)
+    state_sig = prep[2]
+    cache_sig = _bundle_cache_sig(state_sig, breq)
+    cached = state.bundle_cache.get(ctx["api_key"], cache_sig)
+    if cached is not None:
+        bundle, cache_status, t_ms = cached["bundle"], "HIT", prep_ms
+    else:
+        out = native_path.native_settle(
+            breq, eff, include_receipt=False, bundle_alpha=breq.alpha, prepared=prep
+        )
+        bundle, t_ms = out["bundle"], prep_ms + out["t_ms"]
+        state.bundle_cache.put(ctx["api_key"], cache_sig, bundle)
+        cache_status = "MISS"
+        # settle metrics only on a miss: a cache hit runs no settle
+        state.metrics.settle_counter.labels(status="ok").inc()
+        state.metrics.settle_latency.observe(t_ms / 1000.0)
+    resp = ApiResponse(
+        body={
+            "state_sig": state_sig,
+            "bundle": bundle,
+            "timings_ms": {"total_ms": t_ms},
+            "meta": {
+                "N": N,
+                "D": D,
+                "kneighbors_effective": k_eff,
+                "cache": cache_status,
+                "backend": "native",
+            },
+        },
+        headers={"X-Cache": cache_status, "X-Cache-Key": state_sig[:16]},
+    )
+    _usage_and_headers(resp, state, monthly_ctx, remaining, limit, reset_at, profile_id)
+    return resp
+
+
 def h_chain_receipt(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     ctx = _feature_context(state, req)
     _require_lattice_route()
@@ -766,6 +841,33 @@ def h_chain_receipt(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
         creq.gates is not None or _diffusion_requested(creq), ctx["features"]
     )
     _validate_diffusion(creq)
+
+    # small-N chain receipts serve natively (the engine's chain_receipt
+    # mirrors ops/receipts.py:chain_edge_stats)
+    if native_path.eligible(creq, len(creq.Y)):
+        Y, N, D, k_eff, eff, profile_id = _validate_and_overrides(
+            state, creq, ctx["api_key"]
+        )
+        units = N * D
+        monthly_ctx, remaining, limit, reset_at = _charge(state, ctx["api_key"], units)
+        t0 = time.perf_counter()
+        chain_rec, state_sig = native_path.chain_receipt_native(creq, eff, z_th=creq.z_th)
+        t_ms = 1000.0 * (time.perf_counter() - t0)
+        resp = ApiResponse(
+            body={
+                "state_sig": state_sig,
+                "chain_receipt": chain_rec,
+                "timings_ms": {"total_ms": t_ms},
+                "meta": {
+                    "N": N,
+                    "D": D,
+                    "kneighbors_effective": k_eff,
+                    "backend": "native",
+                },
+            }
+        )
+        _usage_and_headers(resp, state, monthly_ctx, remaining, limit, reset_at, profile_id)
+        return resp
 
     pre = _validate_and_overrides(state, creq, ctx["api_key"])
     units = pre[1] * pre[2]
@@ -828,6 +930,9 @@ def h_settle_batch(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
         if gates.shape != (Q, N):
             raise ApiError(400, "gates_batch must be [Q, N]")
 
+    # routed before the charge: an engine that does not build is a 503
+    # that must not consume units
+    native = native_path.eligible(breq, N)
     units = N * D * Q
     monthly_ctx, remaining, limit, reset_at = _charge(state, ctx["api_key"], units)
 
@@ -836,6 +941,47 @@ def h_settle_batch(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
         raise ApiError(
             422, "params.similarity must be auto|exact|fast|fastest|cluster"
         )
+    if native:
+        # small-N batches serve on the host engine: the graph is built once
+        # and each query pays one stationary solve
+        t0 = time.perf_counter()
+        eng = NativeEngine(
+            Y, kneighbors=k_eff, lamG=breq.params.lamG, lamC=breq.params.lamC,
+            lamQ=breq.params.lamQ,
+        )
+        dopt = breq.diffusion if _diffusion_requested(breq) else None
+        bundles = eng.bundle_batch(
+            psis,
+            gates=gates,
+            k=breq.bundle_k,
+            alpha=breq.alpha,
+            diffusion=(
+                {"beta": dopt.beta, "gamma": dopt.gamma, "tol": dopt.tol,
+                 "max_iters": dopt.max_iters}
+                if dopt is not None
+                else None
+            ),
+        )
+        t_ms = 1000.0 * (time.perf_counter() - t0)
+        state.metrics.usage_units.inc(units)
+        resp = ApiResponse(
+            body={
+                "queries": Q,
+                "bundles": bundles,
+                "timings_ms": {"total_ms": t_ms, "per_query_ms": t_ms / Q},
+                "meta": {
+                    "N": N,
+                    "D": D,
+                    "kneighbors_effective": k_eff,
+                    "backend": "native",
+                    "diffusion": (
+                        {"beta": dopt.beta, "gamma": dopt.gamma} if dopt is not None else None
+                    ),
+                },
+            }
+        )
+        _usage_and_headers(resp, state, monthly_ctx, remaining, limit, reset_at, "baseline")
+        return resp
     t0 = time.perf_counter()
     lat = OscillinkLattice(
         Y,
@@ -1006,37 +1152,58 @@ def h_jobs_submit(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     )
     _validate_diffusion(sreq)
     api_key = ctx["api_key"]
+    # a job the native route would serve is refused now, not failed later,
+    # when the engine does not build
+    native_path.eligible(sreq, len(sreq.Y))
 
     def run() -> dict:
-        # quota charged at execution time (jobs.py:81-94)
+        # quota charged at execution time (jobs.py:81-94); the route as the
+        # synchronous settle's (native or device)
         Y_req, N, D, k_eff, eff, profile_id = _validate_and_overrides(
             state, sreq, api_key
         )
+        native = native_path.eligible(sreq, N)
         units = N * D
         _charge(state, api_key, units)
-        lat, N, D, k_eff, eff, profile_id = _build_lattice(
-            state, sreq, api_key, pre=(Y_req, N, D, k_eff, eff, profile_id)
-        )
-        stats = lat.settle(
-            dt=sreq.options.dt,
-            max_iters=sreq.options.max_iters,
-            tol=sreq.options.tol,
-        )
+        if native:
+            o = native_path.native_settle(
+                sreq, eff, include_receipt=sreq.options.include_receipt
+            )
+            backend = "native"
+        else:
+            lat, N, D, k_eff, eff, profile_id = _build_lattice(
+                state, sreq, api_key, pre=(Y_req, N, D, k_eff, eff, profile_id)
+            )
+            stats = lat.settle(
+                dt=sreq.options.dt,
+                max_iters=sreq.options.max_iters,
+                tol=sreq.options.tol,
+            )
+            o = {
+                "state_sig": lat._signature(),
+                "settle_stats": stats,
+                "receipt": lat.receipt() if sreq.options.include_receipt else None,
+                "bundle": lat.bundle(
+                    k=sreq.options.bundle_k,
+                    diversify=sreq.options.bundle_diversify,
+                )
+                if sreq.options.bundle_k
+                else None,
+            }
+            backend = "device"
+        stats = o["settle_stats"]
         out: dict[str, Any] = {
-            "state_sig": lat._signature(),
-            "backend": "device",
+            "state_sig": o["state_sig"],
+            "backend": backend,
             "settle": {
                 "iters": int(stats.get("iters") or 0),
                 "res": float(stats.get("res") or 0.0),
             },
         }
-        if sreq.options.include_receipt:
-            out["receipt"] = lat.receipt()
-        if sreq.options.bundle_k:
-            out["bundle"] = lat.bundle(
-                k=sreq.options.bundle_k,
-                diversify=sreq.options.bundle_diversify,
-            )
+        if sreq.options.include_receipt and o.get("receipt") is not None:
+            out["receipt"] = o["receipt"]
+        if sreq.options.bundle_k and o.get("bundle") is not None:
+            out["bundle"] = o["bundle"]
         return out
 
     rec = state.jobs.submit(

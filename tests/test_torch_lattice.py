@@ -133,6 +133,25 @@ def test_settle_options_match_jax():
         np.testing.assert_allclose(lt.U, lj.U, rtol=1e-5, atol=1e-5)
 
 
+def test_solve_stats_have_the_lazystats_surface():
+    """settle's return, ``last`` and ``last_ustar`` offer what the JAX
+    lattice's ``LazyStats`` offers a caller: the same keys, item access,
+    ``get``, ``to_dict`` with the same value types, and assignment."""
+    lj, lt = _pair(seed=6)
+    sj, st_ = lj.settle(), lt.settle()
+    lj.solve_Ustar()
+    lt.solve_Ustar()
+    for jax_stats, port_stats in ((sj, st_), (lj.last, lt.last), (lj.last_ustar, lt.last_ustar)):
+        dj, dp = jax_stats.to_dict(), port_stats.to_dict()
+        assert type(dp) is dict and dp.keys() == dj.keys()
+        assert {k: type(v) for k, v in dp.items()} == {k: type(v) for k, v in dj.items()}
+        assert port_stats.get("iters") == jax_stats.get("iters")
+        assert port_stats.get("missing", 7) == jax_stats.get("missing", 7) == 7
+        port_stats["note"] = 1
+        assert port_stats["note"] == 1 and "note" not in dp
+        port_stats.pop("note")
+
+
 def test_dynamics_match_jax(monkeypatch):
     monkeypatch.setenv("OSCILLINK_RECEIPT_DYNAMICS", "1")
     lj, lt = _pair(seed=6)

@@ -1,8 +1,9 @@
 """The port's service outside the compute routes: what it imports, how it
-starts (the refusal of the JAX service's unported routes, the kernel build
-directory as the persistent compile cache), and the host modules the
-handlers reach (autocorrect, the text embeddings of /v1/bench/competitor),
-each against the JAX package's own on the same inputs."""
+starts (the refusal of the JAX service's unported routes and of a native
+route whose engine does not build, the kernel build directory as the
+persistent compile cache), and the host modules the handlers reach
+(autocorrect, the text embeddings of /v1/bench/competitor), each against
+the JAX package's own on the same inputs."""
 
 import importlib
 import json
@@ -38,17 +39,46 @@ SERVICE_MODULES = [
     "oscillink_tpu_torch.utils.compile_cache",
     "oscillink_tpu_torch.adapters.text",
     "oscillink_tpu_torch.preprocess.autocorrect",
+    "oscillink_tpu_torch.service.native_path",
+    "oscillink_tpu_torch.cli",
+    "oscillink_tpu_torch.native",
+    "oscillink_tpu_torch.native.engine",
+    "oscillink_tpu_torch.tools",
+    "oscillink_tpu_torch.tools.license",
+    "oscillink_tpu_torch.tools.license_service",
+    "oscillink_tpu_torch.tools.usage_flush",
+    "oscillink_tpu_torch.adapters",
+    "oscillink_tpu_torch.adapters.registry",
+    "oscillink_tpu_torch.adapters.lsa",
+    "oscillink_tpu_torch.utils",
+    "oscillink_tpu_torch.utils.device",
+    "oscillink_tpu_torch.utils.profiling",
+    "oscillink_tpu_torch.utils.debug_report",
 ]
+TOOLS = ("license", "license_service", "usage_flush")
 
 
-def test_service_imports_neither_jax_nor_the_jax_package():
+def test_service_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """Every module of the service, the CLI, the native engine, the tools,
+    the adapters and the utilities, then a request on each route (the
+    lattice's and the native engine's) and a CLI settle: no module of JAX
+    or of the JAX package is loaded."""
+    np.save(tmp_path / "Y.npy", np.random.default_rng(0).standard_normal((12, 4)).astype(np.float32))
     code = (
-        "import importlib, json, sys\n"
+        "import contextlib, importlib, io, json, os, sys\n"
         f"for m in {SERVICE_MODULES!r}: importlib.import_module(m)\n"
         "from oscillink_tpu_torch.service import create_state, LocalClient\n"
+        "from oscillink_tpu_torch import cli\n"
+        "body = {'Y': [[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]}\n"
         "c = LocalClient(create_state(device='cpu'))\n"
-        "r = c.post('/v1/settle', json_body={'Y': [[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]})\n"
-        "assert r.status_code == 200, r.json()\n"
+        "r = c.post('/v1/settle', json_body=body)\n"
+        "assert r.status_code == 200 and r.json()['meta']['backend'] == 'device', r.json()\n"
+        "os.environ['OSCILLINK_NATIVE_SMALL_N'] = '64'\n"
+        "c = LocalClient(create_state(device='cpu'))\n"
+        "r = c.post('/v1/settle', json_body=body)\n"
+        "assert r.status_code == 200 and r.json()['meta']['backend'] == 'native', r.json()\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        f"    assert cli.main(['settle', {str(tmp_path / 'Y.npy')!r}, '--device', 'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'oscillink_tpu' or m.startswith('oscillink_tpu.'))\n"
         "print(json.dumps(bad))\n"
@@ -60,8 +90,26 @@ def test_service_imports_neither_jax_nor_the_jax_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_the_tools_import_neither_torch_nor_jax():
+    """The licence and usage tools are host-only: loaded from their files,
+    they bring in neither torch nor JAX (nor the port's package, whose
+    ``__init__`` imports torch)."""
+    code = (
+        "import importlib.util, json, sys\n"
+        f"for name in {TOOLS!r}:\n"
+        "    path = f'oscillink_tpu_torch/tools/{name}.py'\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('torch', 'jax', 'oscillink_tpu', 'oscillink_tpu_torch'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("name,item", [
-    ("OSCILLINK_NATIVE_SMALL_N", "queue A item 12"),
     ("OSCILLINK_SHARDED_MIN_N", "queue A item 11"),
 ])
 def test_unported_routes_refuse_to_start(monkeypatch, name, item):
@@ -91,6 +139,47 @@ def test_a_threshold_set_after_start_refuses_each_request(monkeypatch, path):
     r = client.post(path, json_body={"Y": [[1.0, 0.0], [0.0, 1.0]], "chain": [0, 1],
                                      "psis": [[1.0, 0.0]]})
     assert r.status_code == 503 and "queue A item 11" in r.json()["detail"]
+
+
+@pytest.fixture()
+def broken_compiler(monkeypatch, tmp_path):
+    """A compiler that fails and an empty engine build directory."""
+    monkeypatch.setenv("CXX", "/bin/false")
+    monkeypatch.setenv("OSCILLINK_NATIVE_CACHE", str(tmp_path / "empty-build"))
+
+
+def test_native_route_starts_when_its_engine_builds(monkeypatch):
+    monkeypatch.setenv("OSCILLINK_NATIVE_SMALL_N", "2048")
+    client = LocalClient(api.create_state(device="cpu"))
+    r = client.post("/v1/settle", json_body={"Y": [[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]})
+    assert r.status_code == 200 and r.json()["meta"]["backend"] == "native"
+
+
+def test_native_route_refuses_to_start_when_its_engine_does_not_build(monkeypatch,
+                                                                      broken_compiler):
+    """The JAX service would serve these requests from the device without a
+    word; the port refuses to start, naming the threshold and the failure."""
+    monkeypatch.setenv("OSCILLINK_NATIVE_SMALL_N", "2048")
+    with pytest.raises(RuntimeError, match=r"OSCILLINK_NATIVE_SMALL_N=2048.*/bin/false"):
+        api.create_state(device="cpu")
+    with pytest.raises(RuntimeError, match="native engine"):
+        LocalClient()
+
+
+@pytest.mark.parametrize("path", ["/v1/settle", "/v1/receipt", "/v1/bundle", "/v1/chain/receipt",
+                                  "/v1/settle/batch", "/v1/jobs/settle"])
+def test_a_native_threshold_set_after_start_with_no_engine_answers_503(monkeypatch, path,
+                                                                       broken_compiler):
+    client = LocalClient(api.create_state(device="cpu"))
+    monkeypatch.setenv("OSCILLINK_NATIVE_SMALL_N", "64")
+    r = client.post(path, json_body={"Y": [[1.0, 0.0], [0.0, 1.0]], "chain": [0, 1],
+                                     "psis": [[1.0, 0.0]]})
+    assert r.status_code == 503, r.json()
+    assert "native engine" in r.json()["detail"] and "/bin/false" in r.json()["detail"]
+    # above the threshold the card's route serves, engine or not
+    monkeypatch.setenv("OSCILLINK_NATIVE_SMALL_N", "1")
+    r = client.post("/v1/settle", json_body={"Y": [[1.0, 0.0], [0.0, 1.0]]})
+    assert r.status_code == 200 and r.json()["meta"]["backend"] == "device"
 
 
 def test_default_device_is_the_card(monkeypatch):
