@@ -67,7 +67,8 @@ through the public entry points:
   route at the service's full size (5000 x 768 x k8: settle with a signed
   receipt and a bundle, bundle, chain receipt, settle batch of 8 queries,
   ragged bundle of 4 corpora, a diffusion-gated settle under a pro key, a
-  job polled to completion, a graph-cache hit), each timed warm and split
+  job polled to completion, a graph-cache hit), each timed cold and once
+  warm and split
   into parse, lattice and encode; each response held against the service
   on the CPU; and the quickstart /v1/settle through the aiohttp binding on
   127.0.0.1 when aiohttp is installed.
@@ -88,6 +89,26 @@ through the public entry points:
   checkpoint of the ``million`` lattice (``checkpoint_million``: saved,
   restored on the card with no graph build, bit-equal, the same
   iterations and ΔH).
+* the mesh tiers (``oscillink_tpu_torch.parallel``), 4 shards on cuda:0 —
+  a code path with real halo exchanges and per-shard launches, not a
+  multi-card speed: inside ``million``, ``sharded_million`` (the
+  all-gather tier's `shardmap_solve`, the PCA-bisection order, halo plan
+  and `halo_solve`, and `sharded_serve(graph=)` with a bundle and a chain,
+  each held to the same run's single-device U* and receipt; K1's ``src``
+  form held to its plain version and timed at a 250000-row shard against
+  the 1M source and at the halo frame, bit-equal to the one-source form
+  where it computes the same rows); ``halo_windowed`` (131072 x 768 on the
+  locality corpus through K3 a shard, 16384 x 97 through K2, against the
+  gather halo tier and the single-device solve); ``solve_auto_corpus``
+  (131072 x 768 x k8, a clustered and a Gaussian corpus, the tier held to
+  the measured halo); ``service_sharded`` (the flagship request at
+  ``OSCILLINK_SHARDED_MIN_N=4096``: settle, bundle, chain receipt and a job
+  against the device route and the CPU service on 4 CPU shards); and
+  ``hierarchical_streaming`` (8 shards of 16384 rows, the stream's shard
+  receipts equal to the batch tier's; card against CPU at 16384, each
+  shard's ΔH within 1e-5 on the card's graph).  Each
+  shard apply counts its launches: K1 once (twice on the gather halo
+  tier), K3 or K2 once on the windowed halo tier.
 
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
@@ -142,6 +163,12 @@ from oscillink_tpu_torch.ops.kernels import window_spmv as tw
 from oscillink_tpu_torch.ops import receipts as treceipts
 from oscillink_tpu_torch.ops.path import build_path_graph
 from oscillink_tpu_torch.ops.receipts import deltaH_tree_np
+from oscillink_tpu_torch import parallel as tpar
+from oscillink_tpu_torch.parallel import halo_cg as thalo
+from oscillink_tpu_torch.parallel import mesh as tmesh
+from oscillink_tpu_torch.parallel import serve as tserve
+from oscillink_tpu_torch.parallel import sharded_build as tshbuild
+from oscillink_tpu_torch.parallel import shardmap_cg as tsmcg
 from oscillink_tpu_torch.core.receipts import canonical_json, verify_receipt
 from oscillink_tpu_torch.service import LocalClient, create_state
 from oscillink_tpu_torch.service import api as tapi
@@ -238,7 +265,7 @@ WINDOWED_CHUNKED = (("2", "1", "K4"), ("2", "0", "K3"), ("8", "1", "K2"))
 # 4-node chain; warm calls timed per endpoint; every signed receipt under
 # one secret
 FLAGSHIP = dict(n=5000, d=768, k=8, q=8, ragged=(500, 1000, 2000, 4000), chain=[2, 5, 7, 9])
-SERVICE_WARM_CALLS = 3
+SERVICE_WARM_CALLS = 1
 SERVICE_SECRET = "chip-smoke-receipt-secret"
 # the service's native route at the deploy image's threshold (docs/
 # CLOUD_ARCHITECTURE.md: OSCILLINK_NATIVE_SMALL_N=2048), with the largest
@@ -251,6 +278,23 @@ NATIVE_TIMING_KEYS = ("timings_ms", "t_ms", "last_settle_ms", "request_id")
 SYNTH3K = os.path.join("benchmarks", "data", "beir", "synth3k")
 TEXTS = dict(docs=3000, k=8, hash_dim=384, lsa_dim=64)
 K1_SYMBOL = "spmv_gather_kernel"  # csrc/spmv.cu's __global__
+# the mesh tiers: 4 shards on cuda:0; the JAX tests' bars (tests/
+# test_shardmap_cg.py:30, test_halo_cg.py:66 and :151, test_service_sharded.py)
+MESH_SHARDS = 4
+CARD = torch.device("cuda", 0)  # every mesh shard's device
+MESH_GATHER_TOL, MESH_HALO_TOL, WINDOWED_HALO_TOL = 2e-4, 3e-4, 5e-4
+SERVICE_DEVICE_REL = 2e-3
+HIER_REL = 1e-5  # per-shard ΔH: streaming vs hierarchical, card vs CPU on one graph
+# per-shard ΔH, card vs the CPU's own build, where near ties put different
+# neighbours in a shard's graph: set from the readings (2.47e-5 at most on the
+# H100, PERF.md §7); HIER_REL holds every shard on the card's graph
+HIER_TIE_REL = 1e-4
+HALO_WINDOWED = dict(n=131072, d=768, k=8)
+HALO_NARROW = dict(n=16384, d=97, k=8)
+AUTO_MESH = dict(n=131072, d=768, k=8)
+HIER = dict(n=131072, d=768, k=8, shards=8)
+HIER_CPU = dict(n=16384, d=768, k=8, shards=8)
+SHARDED_MIN_N = "4096"  # the service's sharded threshold below the flagship's 5000 rows
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2262,12 +2306,18 @@ def million() -> dict:
             turn_ms[form].append(sync_ms(t0))
     # the checkpoint: saved from this lattice, restored once it is freed
     saved = checkpoint_save(lat)
+    # the mesh tiers' references on this graph (the lattice's last use)
+    refs = mesh_references(lat)
     # K1 against its plain version at the chunk widths on this graph
     g = lat.graph
     del lat, U_start
     torch.cuda.empty_cache()
     ckpt = checkpoint_restore(saved, g, full, ref)
     del saved
+    torch.cuda.empty_cache()
+    # the mesh tiers on this graph, 4 shards on the card (sharded_million)
+    sharded = sharded_million(**refs)
+    del refs
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(5)
     k1_rows, chunk_sweeps = [], []
@@ -2292,7 +2342,7 @@ def million() -> dict:
     launches = {f"{run}_{key}": runs[run][key]["launches"]["K1"]
                 for run in runs for key in ("settle", "ustar", "receipt")}
     return {"launches": launches, "k1_rows": k1_rows, "k1_full": k1_full, "sweep": sweep,
-            "chunk_sweeps": chunk_sweeps, "checkpoint": ckpt}
+            "chunk_sweeps": chunk_sweeps, "checkpoint": ckpt, "sharded": sharded}
 
 
 def window_chunk_kernels(lat: Oscillink, widths: dict) -> list:
@@ -2460,10 +2510,11 @@ def signed_receipts(body) -> list:
     return []
 
 
-def hold_service(tag: str, card: dict, cpu: dict, sig_equal: bool = True) -> dict:
+def hold_service(tag: str, card: dict, cpu: dict, sig_equal: bool = True,
+                 backend: str = "device") -> dict:
     """The card's response against the CPU service's on the same request:
     every digest field identical (``state_sig`` only when ``sig_equal``),
-    ΔH within LATTICE_TOL relative, ``meta.backend`` "device"; each signed
+    ΔH within LATTICE_TOL relative, ``meta.backend`` ``backend``; each signed
     receipt verifies, and two receipts whose signed payloads are
     byte-identical carry the same signature."""
     dc, dp = service_digest(card), service_digest(cpu)
@@ -2480,7 +2531,7 @@ def hold_service(tag: str, card: dict, cpu: dict, sig_equal: bool = True) -> dic
             check(dc[where] == want, f"{tag}: {where} card {dc[where]} vs CPU {want}")
     for where, val in dc.items():
         if where.endswith(".backend"):
-            check(val == "device", f"{tag}: {where} is {val}")
+            check(val == backend, f"{tag}: {where} is {val}")
     pairs = list(zip(signed_receipts(card), signed_receipts(cpu)))
     same_payload = 0
     for rc, rp in pairs:
@@ -3219,6 +3270,509 @@ def texts_phase() -> dict:
     return {"launches": launches}
 
 
+# -- the mesh tiers (parallel/, service/sharded_path.py) -----------------------
+
+
+def card_mesh(shards: int = MESH_SHARDS):
+    """``shards`` mesh shards, all on cuda:0: the halo exchange, the
+    per-shard kernel launches and the psum order run for real on one card
+    (a code path, not a multi-card speed)."""
+    return tmesh.lattice_mesh(devices=[CARD] * shards)
+
+
+def hold_mesh_u(tag: str, U, ref: torch.Tensor, tol: float) -> float:
+    """U (per-shard blocks or a host array, in ref's row order) against a
+    single-device U*: |U − ref| <= tol + tol·|ref| elementwise (the JAX
+    tests' ``assert_allclose(rtol=atol=tol)``); returns max|U − ref| /
+    max|ref|."""
+    got = torch.cat([u.to(ref.device) for u in U]) if isinstance(U, list) else \
+        torch.from_numpy(np.ascontiguousarray(U)).to(ref.device)
+    gap = (got - ref).abs()
+    ok = bool((gap <= tol + tol * ref.abs()).all())
+    rel = float(gap.max()) / max(float(ref.abs().max()), 1e-30)
+    check(bool(torch.isfinite(got).all()), f"{tag}: U not finite")
+    check(ok, f"{tag}: U differs from the single-device U* beyond {tol}: max rel {rel}")
+    return rel
+
+
+def mesh_step(fn) -> dict:
+    """``fn`` on the card with the launch counts set to 0 and the peak
+    reset just before: its result, host ms to a sync, launches and peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    ms = sync_ms(t0)
+    return {"out": out, "ms": ms, "launches": read_counts(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def k1_src_case(tag: str, idx, wn, X, S, one_source=None) -> dict:
+    """K1's ``src`` form against its plain version on a shard's operands:
+    rtol/atol TOL, bit-equal from launch to launch; with ``one_source``
+    (the full graph's idx, wn and X, whose first rows are this shard and S
+    is that X) also bit-equal to the one-source form's rows.  Then CUDA-event times of the kernel, the plain
+    version and one library call (``torch.sparse.mm`` of [I | −Wn] when X
+    is S's rows lo.., else ``torch.addmm`` of −Wn), and the bytes bound
+    over the rows this run's ids reference."""
+    out, again = (spmv.lap_matvec_cuda(idx, wn, X, src=S) for _ in range(2))
+    ref = spmv.lap_matvec_ref(idx, wn, X, src=S)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()), f"k1_src {tag}: not finite")
+    check(torch.allclose(out, ref, rtol=TOL, atol=TOL), f"k1_src {tag}: != plain ({err})")
+    check(torch.equal(out, again), f"k1_src {tag}: differs from launch to launch")
+    row = {"case": tag, "n": idx.shape[0], "k": idx.shape[1], "d": X.shape[1],
+           "src_rows": S.shape[0], "max_abs_err": err,
+           "slab_cols": spmv.slab_plan(idx.shape[0], X.shape[1], idx.shape[1],
+                                       spmv.device_l2_bytes(0), src_rows=S.shape[0])}
+    if one_source is not None:
+        g_idx, g_wn, g_X = one_source
+        full = spmv.lap_matvec_cuda(g_idx, g_wn, g_X)
+        check(torch.equal(out, full[:idx.shape[0]]), f"k1_src {tag}: shard rows != one-source rows")
+        row["bit_equal_one_source"] = True
+        del full
+    del out, again, ref
+    n, k, d = idx.shape[0], idx.shape[1], X.shape[1]
+    reps = 20
+    row["ms"] = cuda_ms(lambda: spmv.lap_matvec_cuda(idx, wn, X, src=S), reps)
+    row["plain_ms"] = cuda_ms(lambda: spmv.lap_matvec_ref(idx, wn, X, src=S), 2)
+    dev = idx.device
+    rows_ref = int(torch.unique(idx[wn != 0]).numel()) if bool((wn != 0).any()) else 0
+    unique_bytes = (2 * n * d + 2 * n * k + rows_ref * d) * 4
+    flops = 2 * n * k * d
+    row.update(referenced_src_rows=rows_ref,
+               bound_ms=1e3 * max(unique_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS),
+               bound_by="bytes" if unique_bytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+               else "operations")
+    crow = torch.arange(0, n * k + 1, k, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        A = torch.sparse_csr_tensor(crow, idx.reshape(-1).long(), (-wn).reshape(-1),
+                                    size=(n, S.shape[0]), check_invariants=False)
+        try:
+            lib = torch.addmm(X, A, S)
+            lib_err = float((lib - spmv.lap_matvec_cuda(idx, wn, X, src=S)).abs().max())
+            check(lib_err < 1e-4, f"k1_src {tag}: library yardstick disagrees: {lib_err}")
+            row["library_ms"] = cuda_ms(lambda: torch.addmm(X, A, S), reps)
+            row["library"] = "torch.addmm(X, CSR(-Wn), S)"
+            del lib
+        except (RuntimeError, NotImplementedError) as e:
+            row["library_ms"], row["library"] = None, f"torch.addmm refused: {str(e)[:120]}"
+    emit("k1_src", **row)
+    return row
+
+
+def permuted_graph(g, order: np.ndarray):
+    """The graph of the rows taken in ``order``: rows permuted, ids mapped."""
+    dev = g.idx.device
+    o = torch.from_numpy(order.astype(np.int64)).to(dev)
+    inv = torch.empty_like(o)
+    inv[o] = torch.arange(o.numel(), device=dev)
+    return tgraph.Graph(idx=inv[g.idx[o].long()].to(torch.int32).contiguous(),
+                        w=g.w[o].contiguous(), wn=g.wn[o].contiguous(), sqrt_deg=g.sqrt_deg[o])
+
+
+def mesh_references(lat: Oscillink) -> dict:
+    """What `sharded_million` holds the mesh tiers to, from the million
+    lattice: its U* from Y without a chain (and its iterations), then, with
+    the chain added, the device route's settle, receipt and bundle."""
+    lat._U_dev = lat._Y_dev
+    lat._invalidate_cache()
+    U_ref = lat._solve_ustar_device(use_cache=False)
+    ref_it = lat.last_ustar["iters"]
+    lat.add_chain(list(FLAGSHIP["chain"]), lamP=0.2)
+    lat.settle(dt=1.0, max_iters=12, tol=1e-3)
+    rec = lat.receipt()
+    ids = [b["id"] for b in lat.bundle(k=8)]
+    serve_ref = {key: rec[key] for key in ("coh_drop_sum", "anchor_pen_sum", "query_term_sum")}
+    serve_ref.update(deltaH=rec["deltaH_total"], bundle=ids, settle_iters=rec["cg_iters"],
+                     ustar_iters=rec["meta"]["ustar_iters"],
+                     nulls={tuple(e["edge"]) for e in rec["null_points"]})
+    return {"g": lat.graph, "Y_dev": lat._Y_dev, "Y_host": lat.Y, "psi": lat.psi.copy(),
+            "U_ref": U_ref, "ref_it": ref_it, "serve_ref": serve_ref}
+
+
+def sharded_million(g, Y_dev: torch.Tensor, Y_host: np.ndarray, psi: np.ndarray,
+                    U_ref: torch.Tensor, ref_it: int, serve_ref: dict) -> dict:
+    """The mesh tiers at 1M x 768 x k8 on the `million` IVF graph, 4
+    shards on cuda:0, each held to the same run's single-device results:
+    `shardmap_solve` (U* at the all-gather bar), the reorder, halo plan and
+    `halo_solve` (the halo bar, in the original order), and
+    `sharded_serve(graph=)` with a bundle and a chain (ΔH and the sums at
+    the JAX service's sharded-vs-device bar, nulls and bundle ids equal).
+    K1's ``src`` form is held to its plain version and timed here, at a
+    250000-row shard against the 1M source and at the halo frame."""
+    n, d, k = MILLION["n"], MILLION["d"], MILLION["k"]
+    mesh = card_mesh()
+    rows = n // MESH_SHARDS
+    dev = Y_dev.device
+    lam = tcoh.EnergyParams.make(1.0, 0.5, 4.0, 0.0, device=dev)
+    B = torch.ones(n, device=dev)
+    out: dict = {}
+    # the all-gather tier
+    st = mesh_step(lambda: tsmcg.shardmap_solve(mesh, g, Y_dev, psi, B, lam, tol=1e-4,
+                                                max_iters=64))
+    U, it, res = st.pop("out")
+    rel = hold_mesh_u("sharded_million all-gather", U, U_ref, MESH_GATHER_TOL)
+    out["all_gather"] = {"iters": it, "res": res, "rel_err": rel, **st}
+    check(abs(it - ref_it) <= 1, f"all-gather iterations {it} vs single-device {ref_it}")
+    check(st["launches"]["K1"] == MESH_SHARDS * (it + 1),
+          f"all-gather K1 launches {st['launches']['K1']} != {MESH_SHARDS} x ({it} + 1)")
+    # K1's src form at the shard's shape: a 250000-row shard against the 1M source
+    idx0, wn0 = g.idx[:rows].contiguous(), g.wn[:rows].contiguous()
+    X = torch.cat(U)
+    k1_rows = [k1_src_case("allgather_shard", idx0, wn0, X[:rows].contiguous(), X,
+                           one_source=(g.idx, g.wn, X))]
+    del U, X
+    torch.cuda.empty_cache()
+    # the halo tier: PCA-bisection order, the graph permuted, its halo
+    t0 = time.perf_counter()
+    order = tpar.pca_bisection_order(Y_host, levels=4, device=dev)
+    reorder_ms = sync_ms(t0)
+    t0 = time.perf_counter()
+    gp = permuted_graph(g, order)
+    idx_h, w_h = gp.idx.cpu().numpy(), gp.w.cpu().numpy()
+    stats = tpar.halo_stats(idx_h, w_h, MESH_SHARDS)
+    plan = thalo.build_halo_plan(idx_h, w_h, MESH_SHARDS)
+    plan_ms = sync_ms(t0)
+    del idx_h, w_h
+    o = torch.from_numpy(order.astype(np.int64)).to(dev)
+    Yp = Y_dev[o]
+    st = mesh_step(lambda: thalo.halo_solve(mesh, gp, plan, Yp, psi, B, lam, tol=1e-4,
+                                            max_iters=64))
+    U, it, res = st.pop("out")
+    back = torch.empty((n, d), device=dev)
+    back[o] = torch.cat(U)
+    rel = hold_mesh_u("sharded_million halo", [back], U_ref, MESH_HALO_TOL)
+    out["halo"] = {"iters": it, "res": res, "rel_err": rel, "halo_stats": stats,
+                   "r_max": plan.r_max, "reorder_ms": reorder_ms, "plan_ms": plan_ms, **st}
+    check(abs(it - ref_it) <= 1, f"halo iterations {it} vs single-device {ref_it}")
+    check(st["launches"]["K1"] == 2 * MESH_SHARDS * (it + 1),
+          f"halo K1 launches {st['launches']['K1']} != 2 x {MESH_SHARDS} x ({it} + 1)")
+    # K1's src form at the halo frame: shard 0's halo slots against its frame
+    ops = thalo._HaloOperands(mesh, gp, plan)
+    frame = ops.halo([u.contiguous() for u in U])[0]
+    k1_rows.append(k1_src_case("halo_frame", ops.idx_halo[0], ops.w_halo[0],
+                               U[0].contiguous(), frame))
+    del U, back, Yp, gp, ops, frame, o
+    torch.cuda.empty_cache()
+    # sharded serve on the given graph, with a bundle and a chain
+    chain = list(FLAGSHIP["chain"])
+    st = mesh_step(lambda: tserve.sharded_serve(
+        mesh, Y_host, psi, k=k, bundle_k=8, chain=chain, lamP=0.2, graph=g))
+    sv = st.pop("out")
+    held = {}
+    for key in ("deltaH", "coh_drop_sum", "anchor_pen_sum", "query_term_sum"):
+        want = serve_ref[key]
+        held[key] = abs(sv[key] - want) / max(abs(want), 1e-30)
+        check(held[key] <= SERVICE_DEVICE_REL, f"sharded serve {key}: {sv[key]} vs {want}")
+    nulls = {tuple(e["edge"]) for e in sv["null_points"]}
+    check(nulls == serve_ref["nulls"], f"sharded serve nulls: {len(nulls)} vs "
+          f"{len(serve_ref['nulls'])}")
+    ids = [e["id"] for e in sv["bundle"]]
+    check(ids == serve_ref["bundle"], f"sharded serve bundle {ids} vs {serve_ref['bundle']}")
+    applies = (sv["settle_iters"] + 1) + (sv["ustar_iters"] + 1) + 1
+    check(st["launches"]["K1"] == MESH_SHARDS * applies,
+          f"sharded serve K1 launches {st['launches']['K1']} != {MESH_SHARDS} x {applies}")
+    out["serve"] = {"settle_iters": sv["settle_iters"], "ustar_iters": sv["ustar_iters"],
+                    "rel_to_device": held, "null_points": len(nulls), "bundle_ids": ids,
+                    "device_settle_iters": serve_ref["settle_iters"],
+                    "device_ustar_iters": serve_ref["ustar_iters"], **st}
+    del sv
+    torch.cuda.empty_cache()
+    emit("sharded_million", **MILLION, shards=MESH_SHARDS, device_ustar_iters=ref_it, **out)
+    return {"launches": {key: val["launches"]["K1"] for key, val in out.items()},
+            "k1_src": k1_rows}
+
+
+def halo_windowed() -> dict:
+    """The windowed halo tier (``OSCILLINK_WINDOWED_MATVEC=1``) on 4 shards:
+    the locality corpus at 131072 x 768 x k8 through `halo_solve_windowed`
+    (K3 on each shard's local frame, K1 on its halo), against `halo_solve`
+    and the single-device solve; then 16384 x 97 through K2 and its
+    straggler epilogue.  K3/K2 launches = shards x applies."""
+    rows = {}
+    mesh = card_mesh()
+    for tag, shape, kernel in (("corpus", HALO_WINDOWED, "K3"), ("narrow", HALO_NARROW, "K2")):
+        n, d, k = shape["n"], shape["d"], shape["k"]
+        Y, psi = locality_corpus(n, d, clusters=min(2048, n // 8))
+        t0 = time.perf_counter()
+        order = tpar.pca_bisection_order(Y, levels=4, device=CARD)
+        (Y,) = tpar.apply_order(order, Y)[:1]
+        reorder_ms = sync_ms(t0)
+        t0 = time.perf_counter()
+        g = tshbuild.build_graph_sharded(mesh, Y, k)
+        build_ms = sync_ms(t0)
+        t0 = time.perf_counter()
+        idx_h, w_h = g.idx.cpu().numpy(), g.w.cpu().numpy()
+        plan = thalo.build_halo_plan(idx_h, w_h, MESH_SHARDS)
+        wplan, woh, cov, s_max = thalo.build_shard_window_plans(plan, g.wn.cpu().numpy(),
+                                                                MESH_SHARDS, mesh=mesh)
+        plan_ms = sync_ms(t0)
+        live = ((g.wn.cpu().numpy() * plan.w_local_mask) != 0).reshape(MESH_SHARDS, -1).sum(1)
+        covs = [1.0 - int((p.strag_w != 0).sum()) / max(int(c), 1) for p, c in zip(wplan, live)]
+        check(CARD.type == "cpu" or all(o is None for o in woh),
+              "the card's shard window plans hold a one-hot")
+        lam = tcoh.EnergyParams.make(1.0, 0.5, 4.0, 0.0, device=CARD)
+        B = np.ones(n, np.float32)
+
+        def windowed():
+            with env(OSCILLINK_WINDOWED_MATVEC="1"):
+                return thalo.halo_solve_windowed(mesh, g, plan, wplan, woh, Y, psi, B, lam,
+                                                 tol=1e-4, max_iters=64, s_max=s_max)
+
+        def gather():
+            return thalo.halo_solve(mesh, g, plan, Y, psi, B, lam, tol=1e-4, max_iters=64)
+
+        # one untimed solve each first (the window kernels' first use), then
+        # timed in turns
+        windowed(), gather()
+        win, gat = mesh_step(windowed), mesh_step(gather)
+        U_w, it_w, _ = win.pop("out")
+        U_g, it_g, _ = gat.pop("out")
+        Yd = torch.from_numpy(Y).to(CARD)
+        U1, it1, _ = tcoh.solve_stationary(g, None, Yd, torch.from_numpy(psi).to(CARD),
+                                           torch.ones(n, device=CARD), lam, tol=1e-4,
+                                           max_iters=64)
+        rel_g = hold_mesh_u(f"halo_windowed {tag} gather", U_g, U1, MESH_HALO_TOL)
+        Uw, Ug = torch.cat(U_w), torch.cat(U_g)
+        rel_wg = float((Uw - Ug).abs().max()) / float(Ug.abs().max())
+        check(rel_wg <= WINDOWED_HALO_TOL and abs(it_w - it_g) <= 1,
+              f"halo_windowed {tag}: windowed vs gather {rel_wg}, iterations {it_w} vs {it_g}")
+        check(win["launches"][kernel] == MESH_SHARDS * (it_w + 1),
+              f"halo_windowed {tag}: {kernel} launches {win['launches'][kernel]} != "
+              f"{MESH_SHARDS} x ({it_w} + 1)")
+        check(win["launches"]["K1"] == MESH_SHARDS * (it_w + 1),
+              f"halo_windowed {tag}: K1 (halo) launches {win['launches']['K1']}")
+        rows[tag] = {**shape, "kernel": kernel, "iters": it_w, "gather_iters": it_g,
+                     "single_device_iters": it1, "windowed_vs_gather": rel_wg,
+                     "gather_vs_single_device": rel_g, "min_coverage": cov,
+                     "shard_coverage": covs, "s_max": s_max, "r_max": plan.r_max,
+                     "reorder_ms": reorder_ms, "build_ms": build_ms, "plan_ms": plan_ms,
+                     "windowed": win, "gather": gat}
+        emit("halo_windowed", case=tag, shards=MESH_SHARDS, **rows[tag])
+        del g, U_w, U_g, Uw, Ug, U1, Yd, wplan
+        torch.cuda.empty_cache()
+    return {"launches": {tag: {r["kernel"]: r["windowed"]["launches"][r["kernel"]],
+                               "K1": r["windowed"]["launches"]["K1"]} for tag, r in rows.items()}}
+
+
+def solve_auto_corpus() -> dict:
+    """`solve_auto` end to end at 131072 x 768 x k8 on 4 shards: on the
+    clustered corpus (the halo tier expected) and on the Gaussian corpus
+    (the all-gather tier expected).  The tier must match the measured halo;
+    U, in the original row order, is held to the single-device lattice's
+    U* with the same similarity ("auto": fast at this N)."""
+    mesh = card_mesh()
+    n, d, k = AUTO_MESH["n"], AUTO_MESH["d"], AUTO_MESH["k"]
+    rows = {}
+    for tag, (Y, psi), expect in (("clustered", clustered_corpus(n, d), "halo-exchange"),
+                                  ("gaussian", data(n, d), "all-gather")):
+        st = mesh_step(lambda: tpar.solve_auto(mesh, Y, psi, k=k))
+        U, info = st.pop("out")
+        s = info["halo_stats"]
+        want = "halo-exchange" if s["halo_mean"] < 0.5 * s["allgather_rows"] else "all-gather"
+        check(info["tier"] == want, f"solve_auto {tag}: tier {info['tier']}, halo says {want}")
+        lat = Oscillink(Y, kneighbors=k, similarity="auto", device=CARD)
+        lat.set_query(psi)
+        U1 = lat._solve_ustar_device(tol=1e-4, max_iters=64)
+        it1 = lat.last_ustar["iters"]
+        tol = MESH_HALO_TOL if info["tier"].startswith("halo") else MESH_GATHER_TOL
+        rel = hold_mesh_u(f"solve_auto {tag}", U, U1, tol)
+        check(abs(info["iters"] - it1) <= 1, f"solve_auto {tag}: {info['iters']} vs {it1} iters")
+        per_apply = 2 if info["tier"].startswith("halo") else 1
+        check(st["launches"]["K1"] == per_apply * MESH_SHARDS * (info["iters"] + 1),
+              f"solve_auto {tag}: K1 launches {st['launches']['K1']}")
+        rows[tag] = {**info, "expected_tier": expect, "met_expectation": info["tier"] == expect,
+                     "single_device_iters": it1, "rel_err": rel, "similarity": lat._similarity,
+                     **st}
+        emit("solve_auto_corpus", case=tag, **AUTO_MESH, shards=MESH_SHARDS, **rows[tag])
+        del lat, U1, U
+        torch.cuda.empty_cache()
+    return {"launches": {tag: r["launches"]["K1"] for tag, r in rows.items()}}
+
+
+def service_sharded() -> dict:
+    """`service_flagship`'s 5000 x 768 x k8 request at
+    ``OSCILLINK_SHARDED_MIN_N=4096`` (`SHARDED_MIN_N`) on a 4-shard mesh on
+    cuda:0: settle
+    (with a bundle), bundle, chain receipt and a job, each held to the
+    card's device route (the JAX service's sharded-vs-device bars) and to
+    the CPU service on a 4-shard CPU mesh (ΔH 1e-5 relative; state_sig,
+    nulls, bundle ids and verdicts equal); backend "sharded", 4 shards."""
+    f = FLAGSHIP
+    n, d, k = f["n"], f["d"], f["k"]
+    rng = np.random.default_rng(11)
+    Y = rng.standard_normal((n, d), dtype=np.float32)
+    m = Y[:20].mean(0)
+    psi = (m / (np.linalg.norm(m) + 1e-12)).astype(np.float32)
+    base = {"Y": Y.tolist(), "psi": psi.tolist(), "params": {"kneighbors": k}}
+    raw = {key: json.dumps(val).encode() for key, val in {
+        "settle": {**base, "options": {"bundle_k": 8, "include_receipt": True}},
+        "bundle": {**base, "bundle_k": 8},
+        "chain_receipt": {**base, "chain": f["chain"]},
+    }.items()}
+    rows = {}
+    with env(OSCILLINK_RECEIPT_SECRET=SERVICE_SECRET, OSCILLINK_BUNDLE_CACHE_TTL="0"):
+        tconfig.get_settings.cache_clear()
+        device_route = LocalClient(create_state(device=CARD))
+        with env(OSCILLINK_SHARDED_MIN_N=SHARDED_MIN_N):
+            card = LocalClient(create_state(device=CARD, mesh=[CARD] * MESH_SHARDS))
+            cpu = LocalClient(create_state(device="cpu", mesh=[torch.device("cpu")] * MESH_SHARDS))
+            for key, path in (("settle", "/v1/settle"), ("bundle", "/v1/bundle"),
+                              ("chain_receipt", "/v1/chain/receipt"),
+                              ("jobs_settle", "/v1/jobs/settle")):
+                data_ = raw.get(key, raw["settle"])
+                body, row = service_call(card, path, data_)
+                body_cpu, cpu_row = service_call(cpu, path, data_)
+                with env(OSCILLINK_SHARDED_MIN_N="0"):
+                    body_dev, dev_row = service_call(device_route, path, data_)
+                held = hold_service(key, body, body_cpu, backend="sharded")
+                meta = body.get("meta", {})
+                backend = body.get("backend", meta.get("backend"))
+                check(backend == "sharded", f"service_sharded {key}: backend {backend}")
+                shards = ((body.get("receipt") or {}).get("meta", {}).get("mesh_devices")
+                          or body.get("chain_receipt", {}).get("mesh_devices"))
+                check(shards in (None, MESH_SHARDS), f"service_sharded {key}: {shards} shards")
+                check(row["k1_launches"] > 0 and row["k1_launches"] % MESH_SHARDS == 0,
+                      f"service_sharded {key}: K1 launches {row['k1_launches']}")
+                rows[key] = {"endpoint": path, "backend": backend, "mesh_devices": shards,
+                             "ms": row["ms"], "lattice_ms": row["lattice_ms"],
+                             "k1_launches": row["k1_launches"], "peak_bytes": row["peak_bytes"],
+                             "cpu_ms": cpu_row["ms"], "device_route_ms": dev_row["ms"],
+                             "device_route_k1": dev_row["k1_launches"],
+                             "vs_device": hold_vs_device(key, body, body_dev), **held}
+                emit("service_sharded", name=key, shards=MESH_SHARDS, **rows[key])
+    tconfig.get_settings.cache_clear()
+    return {"launches": {key: row["k1_launches"] for key, row in rows.items()}}
+
+
+def hold_vs_device(tag: str, sharded: dict, device: dict) -> dict:
+    """The sharded route against the device route on one request: the JAX
+    service's bars (tests/test_service_sharded.py): state_sig equal, ΔH and
+    the sums within 2e-3 relative, null edges, bundle ids and chain
+    verdicts equal."""
+    out = {}
+    check(sharded["state_sig"] == device["state_sig"], f"{tag}: state_sig sharded vs device")
+    rs, rd = sharded.get("receipt"), device.get("receipt")
+    if rs is not None and rd is not None:
+        for key in ("deltaH_total", "coh_drop_sum", "anchor_pen_sum", "query_term_sum"):
+            out[key] = abs(rs[key] - rd[key]) / max(abs(rd[key]), 1e-30)
+            check(out[key] <= SERVICE_DEVICE_REL, f"{tag}: {key} sharded {rs[key]} vs {rd[key]}")
+        check({tuple(e["edge"]) for e in rs["null_points"]}
+              == {tuple(e["edge"]) for e in rd["null_points"]}, f"{tag}: null edges")
+    if sharded.get("bundle") is not None:
+        check([e["id"] for e in sharded["bundle"]] == [e["id"] for e in device["bundle"]],
+              f"{tag}: bundle ids sharded vs device")
+    if "chain_receipt" in sharded:
+        cs, cd = sharded["chain_receipt"], device["chain_receipt"]
+        check(cs["verdict"] == cd["verdict"] and cs["weakest_link"]["edge"]
+              == cd["weakest_link"]["edge"], f"{tag}: chain verdict sharded vs device")
+        out["coherence_gain"] = abs(cs["coherence_gain"] - cd["coherence_gain"]) / max(
+            abs(cd["coherence_gain"]), 1e-30)
+    return out
+
+
+def hierarchical_card_vs_cpu(Y: np.ndarray, psi: np.ndarray, card: dict, cpu: dict, shards: int,
+                             k: int) -> list:
+    """Each shard of ``hierarchical_settle``'s card receipt (``card``, with
+    the defaults' lambdas, tol and iteration cap) against the CPU, two
+    ways.  On the card's graph, the shard solved on the CPU: ΔH within
+    HIER_REL and equal iterations, every shard.  Against the CPU's own run
+    (``cpu``): where cuBLAS and the CPU's BLAS round near-tied similarities
+    apart (the graphs differ only within `near_tie_witness`'s rounding
+    bound), ΔH within HIER_TIE_REL and iterations within one; every other
+    shard within HIER_REL and equal iterations."""
+    ns = Y.shape[0] // shards
+    lam = tcoh.EnergyParams.make(1.0, 0.5, 4.0, 0.0, device="cpu")
+    psi_c = torch.from_numpy(psi)
+    witness = []
+    for s_, (a, b) in enumerate(zip(card["shard_receipts"], cpu["shard_receipts"])):
+        Ys = torch.from_numpy(np.ascontiguousarray(Y[s_ * ns:(s_ + 1) * ns]))
+        g = build_graph(Ys.to(CARD), k)
+        ties = near_tie_witness(Ys.numpy(), g.idx.cpu().numpy(), build_graph(Ys, k).idx.numpy())
+        U, it, _ = tcoh.solve_stationary(tgraph.Graph(*(t.cpu() for t in g)), None, Ys, psi_c,
+                                         torch.ones(ns), lam, tol=1e-4, max_iters=64)
+        diff = U - Ys
+        dH = float(torch.sum(diff * (lam.lamG * diff)))
+        ties["deltaH_rel_card_graph"] = abs(a["deltaH"] - dH) / abs(dH)
+        ties["deltaH_rel"] = abs(a["deltaH"] - b["deltaH"]) / abs(b["deltaH"])
+        witness.append(ties)
+        check(it == a["iters"] and ties["deltaH_rel_card_graph"] <= HIER_REL,
+              f"hierarchical shard {s_} on the card's graph: CPU {it} iterations, {dH} vs {a}")
+        check(ties["max_gap"] <= ties["gap_bound"], f"hierarchical shard {s_} graphs: {ties}")
+        if ties["slots_differ"]:
+            check(abs(a["iters"] - b["iters"]) <= 1 and ties["deltaH_rel"] <= HIER_TIE_REL,
+                  f"hierarchical card vs CPU: {a} vs {b}")
+        else:
+            check(a["iters"] == b["iters"] and ties["deltaH_rel"] <= HIER_REL,
+                  f"hierarchical card vs CPU: {a} vs {b}")
+    return witness
+
+
+def hierarchical_streaming() -> dict:
+    """`hierarchical_settle` at 131072 x 768 x k8 with 8 shards on the card;
+    a `StreamingLattice` fed the same rows in 8 flushes with max_shards 5
+    (one consolidation), whose per-flush shard receipts must be the
+    hierarchical ones, and one with max_shards 8, whose flushed stream
+    must compose the hierarchical receipts; then card against CPU at
+    16384 x 768 (`hierarchical_card_vs_cpu`)."""
+    n, d, k, shards = HIER["n"], HIER["d"], HIER["k"], HIER["shards"]
+    Y, psi = clustered_corpus(n, d)
+    st = mesh_step(lambda: tpar.hierarchical_settle(Y, psi, n_shards=shards, kneighbors=k,
+                                                    device=CARD))
+    hier = st.pop("out")
+    applies = sum(r["iters"] + 1 for r in hier["shard_receipts"]) + hier["super"]["iters"] + 1
+    check(st["launches"]["K1"] == applies, f"hierarchical K1 {st['launches']['K1']} != {applies}")
+    ns = n // shards
+    streams = {}
+    for max_shards in (5, 8):
+        t0 = time.perf_counter()
+        reset_counts()
+        sl = tpar.StreamingLattice(psi, shard_size=ns, max_shards=max_shards, kneighbors=k,
+                                   device=CARD)
+        recs = sl.append(Y)
+        ms = sync_ms(t0)
+        for s, r in enumerate(recs):
+            want = hier["shard_receipts"][s]
+            got = r["new_shard"]
+            check(got["iters"] == want["iters"] and abs(got["deltaH"] - want["deltaH"])
+                  <= HIER_REL * abs(want["deltaH"]), f"stream flush {s}: {got} vs {want}")
+        last = recs[-1]
+        if max_shards == 8:
+            check(last["super"]["ranking"] == hier["super"]["ranking"],
+                  "flushed stream ranking != hierarchical")
+            check(abs(last["deltaH_composed"] - hier["deltaH_composed"])
+                  <= HIER_REL * abs(hier["deltaH_composed"]), "flushed stream deltaH_composed")
+        else:
+            check(sl.generation == 1 and sl.total_rows == n, f"stream: generation {sl.generation}")
+        streams[max_shards] = {"ms": ms, "generation": sl.generation, "n_shards": sl.n_shards,
+                               "deltaH_composed": last["deltaH_composed"],
+                               "k1_launches": spmv.launches}
+        del sl, recs
+    nc = HIER_CPU["n"]
+    Yc, psic = clustered_corpus(nc, d, seed=1)
+    card = tpar.hierarchical_settle(Yc, psic, n_shards=shards, kneighbors=k, device=CARD)
+    cpu = tpar.hierarchical_settle(Yc, psic, n_shards=shards, kneighbors=k, device="cpu")
+    witness = hierarchical_card_vs_cpu(Yc, psic, card, cpu, shards, k)
+    check(card["super"]["ranking"] == cpu["super"]["ranking"], "hierarchical ranking card vs CPU")
+    rounded_alike = all(round(a["deltaH"], 6) == round(b["deltaH"], 6) for a, b in zip(
+        card["shard_receipts"], cpu["shard_receipts"])) and round(card["super"]["deltaH"], 6) \
+        == round(cpu["super"]["deltaH"], 6) and [round(x, 6) for x in card["super"]["align"]] \
+        == [round(x, 6) for x in cpu["super"]["align"]]
+    check((card["composition_sig"] == cpu["composition_sig"]) == rounded_alike,
+          "composition_sig card vs CPU against the rounding rule")
+    emit("hierarchical_streaming", **HIER, hierarchical={**st, "super_iters": hier["super"]["iters"],
+         "shard_iters": [r["iters"] for r in hier["shard_receipts"]],
+         "deltaH_composed": hier["deltaH_composed"]}, streams=streams,
+         card_vs_cpu={"n": nc, "sig_equal": card["composition_sig"] == cpu["composition_sig"],
+                      "rounded_alike": rounded_alike, "shards": witness})
+    return {"launches": {"hierarchical": st["launches"]["K1"],
+                         **{f"stream_max{m}": s["k1_launches"] for m, s in streams.items()}}}
+
+
 def profiling_phase() -> dict:
     """`utils.profiling` on the card: `trace` around a corpus settle writes
     a Chrome trace that holds K1's kernel; `device_memory_stats` returns its
@@ -3346,6 +3900,7 @@ def main() -> int:
     service_warmup()
     quick = service_quickstart()
     flagship = service_flagship()
+    svc_sharded = service_sharded()
     http = service_http(quick["state"], quick["data"], quick["settle"])
     native = native_route()
     service_launches = {
@@ -3353,6 +3908,7 @@ def main() -> int:
         **{f"flagship {key}": val for key, val in flagship["launches"].items()},
         "http /v1/settle": http.get("k1_launches"),
         **{f"native_route device {route}": val for route, val in native["launches"].items()},
+        **{f"sharded {route}": val for route, val in svc_sharded["launches"].items()},
     }
     del quick, flagship
     torch.cuda.empty_cache()
@@ -3450,6 +4006,20 @@ def main() -> int:
     big = million()
     torch.cuda.empty_cache()
 
+    # 7f. the mesh tiers at 131072 rows, 4 shards on the card: the windowed
+    # halo tier (K3; K2 at D = 97), solve_auto on both sides of its tier
+    # decision, the hierarchical and streaming tiers (8 shards)
+    halo_win = halo_windowed()
+    auto_mesh = solve_auto_corpus()
+    hier = hierarchical_streaming()
+    torch.cuda.empty_cache()
+    mesh_launches = {**{f"million_{key}": val for key, val in big["sharded"]["launches"].items()},
+                     **{f"halo_windowed_{tag}": val["K1"]
+                        for tag, val in halo_win["launches"].items()},
+                     **{f"solve_auto_{tag}": val for tag, val in auto_mesh["launches"].items()},
+                     **hier["launches"]}
+    k1_src = big["sharded"]["k1_src"]
+
     # 8. windowed corpus: the full-width windowed main path through K4
     win_launches = {"K4": windowed_corpus()}
 
@@ -3491,7 +4061,7 @@ def main() -> int:
         "source": "oscillink_tpu_torch/csrc/spmv.cu",
         "replaces": "oscillink_tpu/ops/pallas/spmv.py:43",
         "launches": launches,
-        "max_abs_err": k1_err,
+        "max_abs_err": max(k1_err, max(r["max_abs_err"] for r in k1_src)),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -3524,6 +4094,9 @@ def main() -> int:
         "launches_chunked": {**big["launches"], **{
             f"windowed_{tag}": val["K1"]
             for tag, val in wchunk["launches"].items() if "K1" in val}},
+        "launches_mesh": mesh_launches,
+        "src_form": k1_src,
+        "src_max_abs_err": max(r["max_abs_err"] for r in k1_src),
         "chunk_max_abs_err": max(r["max_abs_err"] for r in k1_chunk_rows),
         "per_chunk_width": k1_chunk_rows,
     }] + [{
@@ -3540,6 +4113,8 @@ def main() -> int:
         **({"pap_max_abs_err": win_errs["K4_pap"],
             "gather_plain_pap_max_abs_err": win_errs["K4_gather_pap"]} if key == "K4" else {}),
         "launches_chunked": chunk_launches[key],
+        "launches_halo_windowed": {tag: val[key] for tag, val in halo_win["launches"].items()
+                                   if key in val},
         "chunk_max_abs_err": chunk_rows[key]["max_abs_err"],
         "chunk_width": chunk_rows[key],
     } for key, kname, _, replaces in WINDOW_KERNELS] + [k5_row]}), flush=True)

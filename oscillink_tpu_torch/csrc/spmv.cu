@@ -1,10 +1,14 @@
 // Gather-SpMV for Hopper (sm_90a): the k-sparse normalized-Laplacian matvec
 //
-//     out[i] = X[i] - sum_{k=0..K-1} wn[i,k] * X[idx[i,k]]
+//     out[i] = X[i] - sum_{k=0..K-1} wn[i,k] * Src[idx[i,k]]
 //
 // idx [N,K] int32, wn [N,K] f32, X [N,D] f32, out [N,D] f32, all row-major
-// and contiguous.  The sum is taken in f32, starting from X[i] and
-// subtracting k = 0..K-1 in order, the order of the reference's gather loop.
+// and contiguous.  Src, the rows gathered from, is X itself (the lattice's
+// operator) or another [M,D] f32 source (a shard's operator: its own rows
+// X against the all-gathered direction, M = all rows, or the received halo
+// frame, M = shards x R_max).  The sum is taken in f32, starting from X[i]
+// and subtracting k = 0..K-1 in order, the order of the reference's gather
+// loop.  With Src = X the kernel is the one-source form, bit for bit.
 //
 // Replaces: oscillink_tpu/ops/pallas/spmv.py:_spmv_kernel (lap_matvec_pallas),
 // which pulls each neighbour row into VMEM by one DMA per (row, k) and
@@ -83,7 +87,7 @@ __device__ __forceinline__ void store_streaming(float4* p, const float4& v) { __
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 spmv_gather_kernel(const int* __restrict__ idx, const float* __restrict__ wn,
-                   const T* __restrict__ X, T* __restrict__ out,
+                   const T* __restrict__ X, const T* __restrict__ Src, T* __restrict__ out,
                    int64_t n, int k, int64_t cols, int64_t slab, int64_t tiles) {
   constexpr int kPass = kThreads / G;
   const int64_t s = blockIdx.x / tiles;
@@ -132,7 +136,7 @@ spmv_gather_kernel(const int* __restrict__ idx, const float* __restrict__ wn,
         for (int q = 0; q < kRows; ++q) {
           const int j = __shfl_sync(kFull, my_j[q], a, G);
           const float w = __shfl_sync(kFull, my_w[q], a, G);
-          if (live[q]) sub_scaled(acc[q], w, X[static_cast<int64_t>(j) * cols + c]);
+          if (live[q]) sub_scaled(acc[q], w, Src[static_cast<int64_t>(j) * cols + c]);
         }
       }
     }
@@ -143,50 +147,53 @@ spmv_gather_kernel(const int* __restrict__ idx, const float* __restrict__ wn,
 }
 
 template <typename T, int G>
-int launch(const int* idx, const float* wn, const T* X, T* out, int64_t n, int k,
+int launch(const int* idx, const float* wn, const T* X, const T* Src, T* out, int64_t n, int k,
            int64_t cols, int64_t slab, cudaStream_t stream) {
   constexpr int64_t rows = kThreads / G * kRows;
   const int64_t tiles = (n + rows - 1) / rows;
   const int64_t blocks = tiles * ((cols + slab - 1) / slab);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   spmv_gather_kernel<T, G><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      idx, wn, X, out, n, k, cols, slab, tiles);
+      idx, wn, X, Src, out, n, k, cols, slab, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 // G = the slab's width in T units rounded up to a power of two, at most 32
 template <typename T>
-int launch_slabs(const void* idx, const void* wn, const void* X, void* out, int64_t n, int k,
-                 int64_t cols, int64_t slab, cudaStream_t s) {
+int launch_slabs(const void* idx, const void* wn, const void* X, const void* Src, void* out,
+                 int64_t n, int k, int64_t cols, int64_t slab, cudaStream_t s) {
   const int* i = static_cast<const int*>(idx);
   const float* w = static_cast<const float*>(wn);
   const T* x = static_cast<const T*>(X);
+  const T* src = static_cast<const T*>(Src);
   T* o = static_cast<T*>(out);
-  if (slab > 16) return launch<T, 32>(i, w, x, o, n, k, cols, slab, s);
-  if (slab > 8) return launch<T, 16>(i, w, x, o, n, k, cols, slab, s);
-  if (slab > 4) return launch<T, 8>(i, w, x, o, n, k, cols, slab, s);
-  if (slab > 2) return launch<T, 4>(i, w, x, o, n, k, cols, slab, s);
-  if (slab > 1) return launch<T, 2>(i, w, x, o, n, k, cols, slab, s);
-  return launch<T, 1>(i, w, x, o, n, k, cols, slab, s);
+  if (slab > 16) return launch<T, 32>(i, w, x, src, o, n, k, cols, slab, s);
+  if (slab > 8) return launch<T, 16>(i, w, x, src, o, n, k, cols, slab, s);
+  if (slab > 4) return launch<T, 8>(i, w, x, src, o, n, k, cols, slab, s);
+  if (slab > 2) return launch<T, 4>(i, w, x, src, o, n, k, cols, slab, s);
+  if (slab > 1) return launch<T, 2>(i, w, x, src, o, n, k, cols, slab, s);
+  return launch<T, 1>(i, w, x, src, o, n, k, cols, slab, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`, `slab_cols` (1..d) columns a slab, and
-// returns a cudaError_t as an int (0 on success).  It does not synchronise
-// and allocates nothing.
-int oscillink_spmv_gather(const void* idx, const void* wn, const void* X, void* out,
-                          long long n, int k, long long d, long long slab_cols, void* stream) {
+// Launches the kernel on `stream`, gathering from Src (ids in [0, M); Src may
+// be X), `slab_cols` (1..d) columns a slab, and returns a cudaError_t as an int
+// (0 on success).  It does not synchronise and allocates nothing.
+int oscillink_spmv_gather_src(const void* idx, const void* wn, const void* X, const void* Src,
+                              void* out, long long n, int k, long long d, long long slab_cols,
+                              void* stream) {
   if (n <= 0 || d <= 0) return 0;
   if (k <= 0 || slab_cols <= 0 || slab_cols > d) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec4 = (d % 4 == 0) && (slab_cols % 4 == 0) &&
                     (reinterpret_cast<uintptr_t>(X) % 16 == 0) &&
+                    (reinterpret_cast<uintptr_t>(Src) % 16 == 0) &&
                     (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  if (vec4) return launch_slabs<float4>(idx, wn, X, out, n, k, d / 4, slab_cols / 4, s);
-  return launch_slabs<float>(idx, wn, X, out, n, k, d, slab_cols, s);
+  if (vec4) return launch_slabs<float4>(idx, wn, X, Src, out, n, k, d / 4, slab_cols / 4, s);
+  return launch_slabs<float>(idx, wn, X, Src, out, n, k, d, slab_cols, s);
 }
 
 const char* oscillink_cuda_error_string(int code) {

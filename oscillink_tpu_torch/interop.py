@@ -28,6 +28,8 @@ __all__ = [
     "energy_from_numpy",
     "window_plan_from_numpy",
     "onehots_from_numpy",
+    "halo_plan_from_numpy",
+    "shard_window_plans_from_numpy",
 ]
 
 
@@ -149,3 +151,46 @@ def onehots_from_numpy(main, strag, *, device: DeviceLike = None) -> OneHots:
     if bf16_main:
         main_t = main_t.to(torch.bfloat16)
     return OneHots(main=main_t, strag=_tensor(strag, np.float32, dev).to(torch.bfloat16))
+
+
+def halo_plan_from_numpy(send_map, send_valid, remap, idx_local, w_local_mask, idx_halo,
+                         w_halo_mask, r_max, rows_per):
+    """The port's `parallel.halo_cg.HaloPlan` (host arrays) from the JAX
+    package's plan fields (in field order), checked for the shapes and id
+    ranges the two K1 launches of an apply rely on."""
+    from .parallel.halo_cg import HaloPlan
+
+    send_map, send_valid = np.array(send_map, np.int32), np.array(send_valid, bool)
+    n_dev, _, r = send_map.shape
+    r_max, rows_per = int(r_max), int(rows_per)
+    idx_local, idx_halo = np.array(idx_local, np.int32), np.array(idx_halo, np.int32)
+    if send_map.shape != (n_dev, n_dev, r_max) or send_valid.shape != send_map.shape:
+        raise ValueError("send_map and send_valid must be [n_dev, n_dev, r_max]")
+    if idx_local.shape[0] != n_dev * rows_per or idx_halo.shape != idx_local.shape:
+        raise ValueError("idx_local and idx_halo must be [n_dev * rows_per, K]")
+    if send_map.size and (send_map.min() < 0 or send_map.max() >= rows_per):
+        raise ValueError("send_map rows must lie in [0, rows_per)")
+    if idx_local.size and (idx_local.min() < 0 or idx_local.max() >= rows_per):
+        raise ValueError("local ids must lie in [0, rows_per)")
+    if idx_halo.size and (idx_halo.min() < 0 or idx_halo.max() >= n_dev * r_max):
+        raise ValueError("halo ids must lie in [0, n_dev * r_max)")
+    return HaloPlan(send_map, send_valid, np.array(remap, np.int32), idx_local,
+                    np.array(w_local_mask, np.float32), idx_halo,
+                    np.array(w_halo_mask, np.float32), r_max, rows_per)
+
+
+def shard_window_plans_from_numpy(plan_fields, onehot_fields, *, W: int, s_max: int,
+                                  devices) -> tuple[list, list]:
+    """Per-shard `WindowPlan`s and `OneHots` from the JAX package's stacked
+    ``build_shard_window_plans`` output (each field [n_dev, ...]): shard s's
+    plan on ``devices[s]`` (each checked by `window_plan_from_numpy` with
+    the shared ``s_max``), its one-hots on the CPU shards only (the card's
+    kernels read the plan alone; None there)."""
+    plans, ohs = [], []
+    for s, dev in enumerate(devices):
+        dev = resolve_device(dev)
+        plans.append(window_plan_from_numpy(*(np.asarray(f)[s] for f in plan_fields), W=W,
+                                            s_max=s_max, device=dev))
+        ohs.append(onehots_from_numpy(*(np.asarray(f)[s] for f in onehot_fields), device=dev)
+                   if dev.type == "cpu" else None)
+    return plans, ohs

@@ -147,18 +147,22 @@ def _topk_dense(Yn: torch.Tensor, k: int, jitter: Optional[torch.Tensor] = None)
     return vals, idx.to(torch.int32)
 
 
-def _topk_blocked(Yn: torch.Tensor, k: int, block_rows: int):
-    """Blocked similarity top-k of every row of ``Yn`` against all rows,
-    self excluded.  O(block * N) memory; the ragged last block needs no
+def _topk_blocked(Yn: torch.Tensor, k: int, block_rows: int,
+                  Yn_all: Optional[torch.Tensor] = None, row_offset: int = 0):
+    """Blocked similarity top-k of every row of ``Yn`` against all rows of
+    ``Yn_all`` (``Yn`` itself when None), self excluded: ``row_offset`` is
+    the global id of Yn's first row (a mesh shard's offset; 0 on one
+    device).  O(block * N) memory; the ragged last block needs no
     padding."""
     n = Yn.shape[0]
+    Yn_all = Yn if Yn_all is None else Yn_all
     vals = torch.empty((n, k), dtype=torch.float32, device=Yn.device)
     idx = torch.empty((n, k), dtype=torch.int32, device=Yn.device)
     for r0 in range(0, n, block_rows):
         r1 = min(r0 + block_rows, n)
-        S = Yn[r0:r1] @ Yn.T  # [B, N]
+        S = Yn[r0:r1] @ Yn_all.T  # [B, N]
         rows = torch.arange(r1 - r0, device=Yn.device)
-        S[rows, rows + r0] = -torch.inf
+        S[rows, rows + r0 + row_offset] = -torch.inf
         v, i = stable_topk(S, k)
         vals[r0:r1] = v
         idx[r0:r1] = i.to(torch.int32)
@@ -178,10 +182,12 @@ def scan_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float().T
 
 
-def _topk_blocked_fast(Yn: torch.Tensor, k: int, block_rows: int):
-    """Two-pass blocked top-k of every row of ``Yn`` against all rows, self
-    excluded: a bf16 scan (`scan_bf16`) of each row block against all of
-    Yn picks 4k candidates (kc = min(4k, N - 1)), an exact
+def _topk_blocked_fast(Yn: torch.Tensor, k: int, block_rows: int,
+                       Yn_all: Optional[torch.Tensor] = None, row_offset: int = 0):
+    """Two-pass blocked top-k of every row of ``Yn`` against all rows of
+    ``Yn_all`` (``Yn`` when None; ``row_offset`` as in `_topk_blocked`),
+    self excluded: a bf16 scan (`scan_bf16`) of each row block against all
+    of them picks 4k candidates (kc = min(4k, N - 1)), an exact
     f32 rescore of the candidates ranks them, and a stable top-k over the
     candidate positions keeps k.  Selected weights are exact f32
     similarities.
@@ -193,19 +199,22 @@ def _topk_blocked_fast(Yn: torch.Tensor, k: int, block_rows: int):
     value desc, index asc) and the final top-k is stable in candidate
     position, as ``lax.top_k`` is."""
     n = Yn.shape[0]
-    kc = min(4 * k, n - 1)  # the JAX package's overscan of 4
+    Yn_all = Yn if Yn_all is None else Yn_all
+    kc = min(4 * k, Yn_all.shape[0] - 1)  # the JAX package's overscan of 4
     Yb = Yn.to(torch.bfloat16)
+    Yb_all = Yb if Yn_all is Yn else Yn_all.to(torch.bfloat16)
     vals = torch.empty((n, k), dtype=torch.float32, device=Yn.device)
     idx = torch.empty((n, k), dtype=torch.int32, device=Yn.device)
     for r0 in range(0, n, block_rows):
         r1 = min(r0 + block_rows, n)
-        S = scan_bf16(Yb[r0:r1], Yb)  # [B, N] f32
+        S = scan_bf16(Yb[r0:r1], Yb_all)  # [B, N] f32
         rows = torch.arange(r1 - r0, device=Yn.device)
-        S[rows, rows + r0] = -torch.inf
+        gid = rows + r0 + row_offset
+        S[rows, gid] = -torch.inf
         cand = stable_topk(S, kc)[1]  # [B, kc] int64
         del S
-        exact = torch.bmm(Yn[cand], Yn[r0:r1, :, None])[:, :, 0]  # [B, kc] f32
-        exact = torch.where(cand == (rows + r0)[:, None], -torch.inf, exact)
+        exact = torch.bmm(Yn_all[cand], Yn[r0:r1, :, None])[:, :, 0]  # [B, kc] f32
+        exact = torch.where(cand == gid[:, None], -torch.inf, exact)
         v, sel = stable_topk(exact, k)
         vals[r0:r1] = v
         idx[r0:r1] = torch.gather(cand, 1, sel).to(torch.int32)

@@ -25,7 +25,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load_library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load_library", "nvcc_command"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -63,6 +63,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and under $CUDA_HOME/bin)")
 
 
+def nvcc_command(src: str | Path, out: str | Path) -> list[str]:
+    """The ``nvcc`` command line that compiles the CUDA source ``src`` into
+    the shared library ``out`` with `NVCC_FLAGS`, as `build` runs it."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
@@ -83,7 +89,7 @@ def build(names: list[str]) -> None:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            nvcc_command(src, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         jobs.append((name, lib, tmp, proc))

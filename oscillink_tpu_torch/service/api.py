@@ -18,9 +18,10 @@ chain receipt, the settle batch and jobs.  The native engine is built when
 the service starts with the threshold set (`create_state` refuses to start
 if it does not build), or by the first request that needs it (a 503 naming
 the failure); the port never serves such a request from the lattice in its
-place.  The JAX service's sharded mesh tier (``OSCILLINK_SHARDED_MIN_N``)
-is not ported yet: the port refuses to start with it set and refuses a
-compute request if it was set since.
+place.  With ``OSCILLINK_SHARDED_MIN_N`` above 0, requests of at least that
+many rows are served by the mesh tier over the state's mesh (``"sharded"``;
+`sharded_path`) at the JAX service's four sites: settle and receipt,
+bundle, chain receipt, and jobs.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from pydantic import ValidationError
 from .. import __version__
 from ..core.lattice import OscillinkLattice
 from ..native import NativeEngine
+from ..parallel.mesh import Mesh, lattice_mesh
 from ..preprocess.autocorrect import smart_correct
 from ..utils.device import DeviceLike, resolve_device
 from .billing import TIERS, price_map, tier_info
@@ -52,7 +54,7 @@ from .jobs import JobStore
 from .keystore import InMemoryKeyStore, KeyStore, make_keystore
 from .learners import Learners
 from .metrics import Metrics
-from . import native_path
+from . import native_path, sharded_path
 from .models import (
     AdminKeyUpdate,
     AutoCorrectRequest,
@@ -110,10 +112,12 @@ class ServiceState:
     """All mutable service singletons, owned by one object (no module
     globals — the reference's reload-to-reset-env pattern becomes simply
     constructing a fresh ServiceState).  ``device``: where every lattice
-    of the service runs (`resolve_device`; ``cuda`` by default)."""
+    of the service runs (`resolve_device`; ``cuda`` by default).  ``mesh``:
+    the devices of the sharded route (`_service_mesh`)."""
 
-    def __init__(self, device: DeviceLike = None) -> None:
+    def __init__(self, device: DeviceLike = None, mesh=None) -> None:
         self.device = resolve_device(device)
+        self.mesh = _service_mesh(self.device, mesh)
         self.keystore: KeyStore = make_keystore()
         self.quota = QuotaState()
         self.monthly = MonthlyUsage()
@@ -128,47 +132,25 @@ class ServiceState:
         self.webhooks = WebhookProcessor(self.keystore, self.cli_sessions)
 
 
-# thresholds that route requests off the lattice in the JAX service to a
-# route not ported yet, and the ROADMAP.md queue item that ports each
-_UNPORTED_ROUTES = (
-    ("OSCILLINK_SHARDED_MIN_N", "the sharded mesh tier", "queue A item 11"),
-)
+def _service_mesh(device, mesh) -> Mesh:
+    """The sharded route's mesh: ``mesh`` as given (a `Mesh` or a list of
+    devices, which may repeat), else every visible device of the state's
+    type — each CUDA card, or one CPU shard."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    if mesh is not None:
+        return lattice_mesh(devices=mesh)
+    if device.type == "cuda":
+        return lattice_mesh()
+    return lattice_mesh(devices=[device])
 
 
-def _env_threshold(name: str) -> int:
-    # the JAX service's reading: unset or not an integer is 0 (off)
-    try:
-        return int(os.getenv(name, "0"))
-    except ValueError:
-        return 0
-
-
-def _unported_routes() -> list[str]:
-    """One line for each route-off-the-lattice threshold set above 0."""
-    return [
-        f"{name}={_env_threshold(name)} selects {what}, which is not ported yet "
-        f"(ROADMAP.md {item}); unset it or set it to 0"
-        for name, what, item in _UNPORTED_ROUTES
-        if _env_threshold(name) > 0
-    ]
-
-
-def _require_lattice_route() -> None:
-    """Refuse a compute request that the JAX service would route off the
-    lattice: the port never serves it from the lattice in its place."""
-    lines = _unported_routes()
-    if lines:
-        raise ApiError(503, "; ".join(lines))
-
-
-def create_state(device: DeviceLike = None) -> ServiceState:
-    """A fresh service on ``device`` (``cuda`` unless given).  Raises
-    RuntimeError when a threshold of `_unported_routes` is set, or when
+def create_state(device: DeviceLike = None, mesh=None) -> ServiceState:
+    """A fresh service on ``device`` (``cuda`` unless given), its sharded
+    route over ``mesh`` (every visible device of the state's type unless
+    given; `_service_mesh`).  Raises RuntimeError when
     ``OSCILLINK_NATIVE_SMALL_N`` is above 0 and the native engine does not
     build."""
-    lines = _unported_routes()
-    if lines:
-        raise RuntimeError("oscillink_tpu_torch.service: " + "; ".join(lines))
     # the kernels' build directory: with OSCILLINK_COMPILE_CACHE_DIR set, a
     # fresh serving process loads the nvcc products a previous one built
     # there (the port's stand-in for the JAX service's persistent XLA cache);
@@ -181,7 +163,7 @@ def create_state(device: DeviceLike = None) -> ServiceState:
             native_path.require_engine()
         except ApiError as e:
             raise RuntimeError(f"oscillink_tpu_torch.service: {e.detail}") from None
-    return ServiceState(device)
+    return ServiceState(device, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -553,7 +535,6 @@ def h_metrics(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
 
 def _settle_core(state: ServiceState, req: ApiRequest, include_receipt=None):
     ctx = _feature_context(state, req)
-    _require_lattice_route()
     sreq = _parse(SettleRequest, req.json())
     _check_diffusion_allowed(
         sreq.gates is not None or _diffusion_requested(sreq), ctx["features"]
@@ -593,6 +574,13 @@ def _settle_core(state: ServiceState, req: ApiRequest, include_receipt=None):
             stats = out["settle_stats"]
             receipt, bundle, state_sig = out["receipt"], out["bundle"], out["state_sig"]
             served_by = "native"
+        elif sharded_path.eligible(sreq, N):
+            out = sharded_path.sharded_settle(
+                sreq, eff, include_receipt=include_receipt, Y=Y_req, mesh=state.mesh
+            )
+            stats = out["settle_stats"]
+            receipt, bundle, state_sig = out["receipt"], out["bundle"], out["state_sig"]
+            served_by = "sharded"
         else:
             lat, N, D, k_eff, eff, profile_id = _build_lattice(
                 state, sreq, ctx["api_key"],
@@ -719,12 +707,16 @@ def h_receipt(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
 def h_bundle(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     """Bundle with per-key TTL-LRU cache + X-Cache headers (main.py:1261-1354)."""
     ctx = _feature_context(state, req)
-    _require_lattice_route()
     breq = _parse(BundleRequest, req.json())
     _check_diffusion_allowed(
         breq.gates is not None or _diffusion_requested(breq), ctx["features"]
     )
     _validate_diffusion(breq)
+
+    # the sharded serve pipeline implements the MMR contract only; the
+    # rerank mode (diversify=False) runs on the device lattice path
+    if breq.diversify and sharded_path.eligible(breq, len(breq.Y)):
+        return _bundle_sharded(state, ctx, breq)
 
     # small-N bundles serve on the native host path (both MMR and rerank
     # modes are implemented in the engine), mirroring the settle routing
@@ -785,6 +777,47 @@ def h_bundle(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     return resp
 
 
+def _bundle_sharded(state: ServiceState, ctx: dict, breq) -> ApiResponse:
+    """/v1/bundle on the mesh tier.  Its state signature (the bundle cache's
+    key) is computed without building a lattice and matches the device
+    route's by construction."""
+    Y, N, D, k_eff, eff, profile_id = _validate_and_overrides(state, breq, ctx["api_key"])
+    units = N * D
+    monthly_ctx, remaining, limit, reset_at = _charge(state, ctx["api_key"], units)
+    state_sig, k_eff = sharded_path.request_state_sig(breq, eff, Y)
+    cache_sig = _bundle_cache_sig(state_sig, breq)
+    cached = state.bundle_cache.get(ctx["api_key"], cache_sig)
+    if cached is not None:
+        bundle, cache_status, t_ms = cached["bundle"], "HIT", 0.0
+    else:
+        breq.options.bundle_k = breq.bundle_k
+        out = sharded_path.sharded_settle(
+            breq, eff, include_receipt=False, alpha=breq.alpha, Y=Y, mesh=state.mesh
+        )
+        bundle, t_ms = out["bundle"], out["t_ms"]
+        state.metrics.settle_counter.labels(status="ok").inc()
+        state.metrics.settle_latency.observe(t_ms / 1000.0)
+        state.bundle_cache.put(ctx["api_key"], cache_sig, bundle)
+        cache_status = "MISS"
+    resp = ApiResponse(
+        body={
+            "state_sig": state_sig,
+            "bundle": bundle,
+            "timings_ms": {"total_ms": t_ms},
+            "meta": {
+                "N": N,
+                "D": D,
+                "kneighbors_effective": k_eff,
+                "cache": cache_status,
+                "backend": "sharded",
+            },
+        },
+        headers={"X-Cache": cache_status, "X-Cache-Key": state_sig[:16]},
+    )
+    _usage_and_headers(resp, state, monthly_ctx, remaining, limit, reset_at, profile_id)
+    return resp
+
+
 def _bundle_native(state: ServiceState, ctx: dict, breq) -> ApiResponse:
     """/v1/bundle on the native engine.  Its state signature (the bundle
     cache's key) comes from `native_path.native_prepare` alone, so a cache
@@ -833,7 +866,6 @@ def _bundle_native(state: ServiceState, ctx: dict, breq) -> ApiResponse:
 
 def h_chain_receipt(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     ctx = _feature_context(state, req)
-    _require_lattice_route()
     creq = _parse(ChainReceiptRequest, req.json())
     if not creq.chain or len(creq.chain) < 2:
         raise ApiError(400, "chain must have >=2 nodes")
@@ -841,6 +873,9 @@ def h_chain_receipt(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
         creq.gates is not None or _diffusion_requested(creq), ctx["features"]
     )
     _validate_diffusion(creq)
+
+    if sharded_path.eligible(creq, len(creq.Y)):
+        return _chain_receipt_sharded(state, ctx, creq)
 
     # small-N chain receipts serve natively (the engine's chain_receipt
     # mirrors ops/receipts.py:chain_edge_stats)
@@ -891,12 +926,53 @@ def h_chain_receipt(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     return resp
 
 
+def _chain_receipt_sharded(state: ServiceState, ctx: dict, creq) -> ApiResponse:
+    """/v1/chain/receipt on the mesh tier (`parallel.serve.sharded_chain_receipt`)."""
+    from ..parallel.serve import sharded_chain_receipt
+
+    Y, N, D, k_eff, eff, profile_id = _validate_and_overrides(state, creq, ctx["api_key"])
+    if min(creq.chain) < 0 or max(creq.chain) >= N:
+        raise ApiError(400, "chain indices out of bounds")
+    if creq.psi is not None and len(creq.psi) != D:
+        raise ApiError(400, "psi dimension mismatch")
+    if creq.gates is not None and len(creq.gates) != N:
+        raise ApiError(400, "gates length mismatch")
+    units = N * D
+    monthly_ctx, remaining, limit, reset_at = _charge(state, ctx["api_key"], units)
+    state_sig, k_eff = sharded_path.request_state_sig(creq, eff, Y)
+    t0 = time.perf_counter()
+    chain_rec = sharded_chain_receipt(
+        sharded_path.mesh_for(N, state.mesh),
+        Y,
+        np.array(creq.psi, dtype=np.float32) if creq.psi is not None else None,
+        np.array(creq.gates, dtype=np.float32) if creq.gates is not None else None,
+        creq.chain,
+        k=k_eff,
+        lamG=eff["lamG"],
+        lamC=eff["lamC"],
+        lamQ=eff["lamQ"],
+        lamP=creq.params.lamP,
+        z_th=creq.z_th,
+        similarity=getattr(creq.params, "similarity", "exact"),
+    )
+    t_ms = 1000.0 * (time.perf_counter() - t0)
+    resp = ApiResponse(
+        body={
+            "state_sig": state_sig,
+            "chain_receipt": chain_rec,
+            "timings_ms": {"total_ms": t_ms},
+            "meta": {"N": N, "D": D, "kneighbors_effective": k_eff, "backend": "sharded"},
+        }
+    )
+    _usage_and_headers(resp, state, monthly_ctx, remaining, limit, reset_at, profile_id)
+    return resp
+
+
 def h_settle_batch(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     """One corpus, Q queries: vmapped stationary solves + per-query bundles.
 
     Units charged: N * D * Q (each query is a full solve)."""
     ctx = _feature_context(state, req)
-    _require_lattice_route()
     breq = _parse(BatchSettleRequest, req.json())
     _check_diffusion_allowed(
         breq.gates_batch is not None or _diffusion_requested(breq),
@@ -1139,7 +1215,6 @@ def h_autocorrect(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
 
 def h_jobs_submit(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
     ctx = _feature_context(state, req)
-    _require_lattice_route()
     if not ctx["features"].get("async_jobs", True):
         raise ApiError(403, "async jobs not enabled for this tier")
     payload = req.json()
@@ -1158,7 +1233,7 @@ def h_jobs_submit(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
 
     def run() -> dict:
         # quota charged at execution time (jobs.py:81-94); the route as the
-        # synchronous settle's (native or device)
+        # synchronous settle's (native, sharded or device)
         Y_req, N, D, k_eff, eff, profile_id = _validate_and_overrides(
             state, sreq, api_key
         )
@@ -1170,6 +1245,12 @@ def h_jobs_submit(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
                 sreq, eff, include_receipt=sreq.options.include_receipt
             )
             backend = "native"
+        elif sharded_path.eligible(sreq, N):
+            o = sharded_path.sharded_settle(
+                sreq, eff, include_receipt=sreq.options.include_receipt, Y=Y_req,
+                mesh=state.mesh,
+            )
+            backend = "sharded"
         else:
             lat, N, D, k_eff, eff, profile_id = _build_lattice(
                 state, sreq, api_key, pre=(Y_req, N, D, k_eff, eff, profile_id)

@@ -289,8 +289,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     bad, ours = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
-    # the windowed tier's modules, K5 and its probe, and the multi-query
-    # serving modules are among those walked
+    # the windowed tier's modules, K5 and its probe, the multi-query
+    # serving modules and the mesh tiers are among those walked
     assert {"oscillink_tpu_torch.ops.kernels.window_spmv", "oscillink_tpu_torch.ops.kernels.build",
             "oscillink_tpu_torch.models.coherence", "oscillink_tpu_torch.interop",
             "oscillink_tpu_torch.ops.kernels.bucket_gather",
@@ -298,7 +298,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "oscillink_tpu_torch.models.batched", "oscillink_tpu_torch.models.ragged",
             "oscillink_tpu_torch.models.oneshot", "oscillink_tpu_torch.preprocess.diffusion",
             "oscillink_tpu_torch.core.perf", "oscillink_tpu_torch.core.provenance",
-            "oscillink_tpu_torch.ops.ivf"} <= set(ours)
+            "oscillink_tpu_torch.ops.ivf", "oscillink_tpu_torch.parallel",
+            "oscillink_tpu_torch.parallel.mesh", "oscillink_tpu_torch.parallel.reorder",
+            "oscillink_tpu_torch.parallel.hierarchical", "oscillink_tpu_torch.parallel.streaming",
+            "oscillink_tpu_torch.parallel.shardmap_cg", "oscillink_tpu_torch.parallel.sharded_build",
+            "oscillink_tpu_torch.parallel.sharded", "oscillink_tpu_torch.parallel.halo_cg",
+            "oscillink_tpu_torch.parallel.serve",
+            "oscillink_tpu_torch.service.sharded_path"} <= set(ours)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

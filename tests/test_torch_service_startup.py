@@ -1,15 +1,17 @@
 """The port's service outside the compute routes: what it imports, how it
-starts (the refusal of the JAX service's unported routes and of a native
+starts (with the sharded route's threshold set, the refusal of a native
 route whose engine does not build, the kernel build directory as the
-persistent compile cache), and the host modules the handlers reach
-(autocorrect, the text embeddings of /v1/bench/competitor), each against
-the JAX package's own on the same inputs."""
+persistent compile cache), which route a threshold set after startup
+selects, and the host modules the handlers reach (autocorrect, the text
+embeddings of /v1/bench/competitor), each against the JAX package's own on
+the same inputs."""
 
 import importlib
 import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -18,6 +20,9 @@ torch = pytest.importorskip("torch")
 
 from oscillink_tpu.adapters.text import simple_text_embed as jax_embed  # noqa: E402
 from oscillink_tpu.preprocess.autocorrect import smart_correct as jax_correct  # noqa: E402
+from oscillink_tpu.service import LocalClient as JaxClient  # noqa: E402
+from oscillink_tpu.service import config as jax_config  # noqa: E402
+from oscillink_tpu.service.api import create_state as jax_create_state  # noqa: E402
 from oscillink_tpu_torch.adapters.text import embed_texts, simple_text_embed  # noqa: E402
 from oscillink_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
 from oscillink_tpu_torch.preprocess.autocorrect import smart_correct  # noqa: E402
@@ -40,6 +45,10 @@ SERVICE_MODULES = [
     "oscillink_tpu_torch.adapters.text",
     "oscillink_tpu_torch.preprocess.autocorrect",
     "oscillink_tpu_torch.service.native_path",
+    "oscillink_tpu_torch.service.sharded_path",
+    "oscillink_tpu_torch.parallel",
+    "oscillink_tpu_torch.parallel.serve",
+    "oscillink_tpu_torch.parallel.halo_cg",
     "oscillink_tpu_torch.cli",
     "oscillink_tpu_torch.native",
     "oscillink_tpu_torch.native.engine",
@@ -60,9 +69,10 @@ TOOLS = ("license", "license_service", "usage_flush")
 
 def test_service_imports_neither_jax_nor_the_jax_package(tmp_path):
     """Every module of the service, the CLI, the native engine, the tools,
-    the adapters and the utilities, then a request on each route (the
-    lattice's and the native engine's) and a CLI settle: no module of JAX
-    or of the JAX package is loaded."""
+    the adapters, the mesh tiers and the utilities, then a request on each
+    route (the lattice's, the native engine's and the sharded route's on a
+    2-shard CPU mesh) and a CLI settle: no module of JAX or of the JAX
+    package is loaded."""
     np.save(tmp_path / "Y.npy", np.random.default_rng(0).standard_normal((12, 4)).astype(np.float32))
     code = (
         "import contextlib, importlib, io, json, os, sys\n"
@@ -77,6 +87,11 @@ def test_service_imports_neither_jax_nor_the_jax_package(tmp_path):
         "c = LocalClient(create_state(device='cpu'))\n"
         "r = c.post('/v1/settle', json_body=body)\n"
         "assert r.status_code == 200 and r.json()['meta']['backend'] == 'native', r.json()\n"
+        "os.environ['OSCILLINK_NATIVE_SMALL_N'] = '0'\n"
+        "os.environ['OSCILLINK_SHARDED_MIN_N'] = '2'\n"
+        "c = LocalClient(create_state(device='cpu', mesh=['cpu', 'cpu']))\n"
+        "r = c.post('/v1/settle', json_body={'Y': [[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.5, 1.0]]})\n"
+        "assert r.status_code == 200 and r.json()['meta']['backend'] == 'sharded', r.json()\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         f"    assert cli.main(['settle', {str(tmp_path / 'Y.npy')!r}, '--device', 'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -109,15 +124,20 @@ def test_the_tools_import_neither_torch_nor_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("name,item", [
-    ("OSCILLINK_SHARDED_MIN_N", "queue A item 11"),
-])
-def test_unported_routes_refuse_to_start(monkeypatch, name, item):
-    monkeypatch.setenv(name, "64")
-    with pytest.raises(RuntimeError, match=item):
-        api.create_state(device="cpu")
-    with pytest.raises(RuntimeError, match=name):
-        LocalClient()
+def test_sharded_route_starts(monkeypatch):
+    """``OSCILLINK_SHARDED_MIN_N`` > 0 starts the service, on the CPU with
+    one shard by default or over a given mesh, and its requests at or
+    above the threshold take the sharded route."""
+    monkeypatch.setenv("OSCILLINK_SHARDED_MIN_N", "4")
+    body = {"Y": [[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.5, 1.0]]}
+    for mesh, shards in ((None, 1), ([torch.device("cpu")] * 4, 4)):
+        state = api.create_state(device="cpu", mesh=mesh)
+        assert state.mesh.size == shards
+        r = LocalClient(state).post("/v1/receipt", json_body=body)
+        assert r.status_code == 200 and r.json()["meta"]["backend"] == "sharded"
+        assert r.json()["receipt"]["meta"]["mesh_devices"] == shards
+    r = LocalClient(api.create_state(device="cpu")).post("/v1/settle", json_body={"Y": body["Y"][:3]})
+    assert r.status_code == 200 and r.json()["meta"]["backend"] == "device"
 
 
 @pytest.mark.parametrize("value", ["0", "-5", "garbage", ""])
@@ -131,14 +151,37 @@ def test_route_thresholds_at_or_below_zero_start(monkeypatch, value):
     assert r.status_code == 200 and r.json()["meta"]["backend"] == "device"
 
 
+def _backend(client, path, body):
+    r = client.post(path, json_body=body)
+    if path == "/v1/jobs/settle":
+        job = r.json()["job_id"]
+        for _ in range(400):
+            jr = client.get(f"/v1/jobs/{job}").json()
+            if jr["status"] in {"done", "error"}:
+                return r.status_code, jr["status"], jr.get("result", {}).get("backend")
+            time.sleep(0.05)
+        raise AssertionError(f"job {job} did not finish")
+    return r.status_code, None, r.json().get("meta", {}).get("backend")
+
+
 @pytest.mark.parametrize("path", ["/v1/settle", "/v1/receipt", "/v1/bundle", "/v1/chain/receipt",
                                   "/v1/settle/batch", "/v1/jobs/settle"])
-def test_a_threshold_set_after_start_refuses_each_request(monkeypatch, path):
-    client = LocalClient(api.create_state(device="cpu"))
+def test_a_threshold_set_after_start_routes_as_the_jax_service(monkeypatch, path):
+    """A threshold set after startup is read per request, as the JAX
+    service reads it: each path's status and ``meta.backend`` are the JAX
+    service's on the same request (the batch has no sharded route)."""
+    for var in ("OSCILLINK_API_KEYS", "OSCILLINK_NATIVE_SMALL_N", "OSCILLINK_RATE_LIMIT"):
+        monkeypatch.delenv(var, raising=False)
+    jax_config.get_settings.cache_clear()
+    clients = (LocalClient(api.create_state(device="cpu", mesh=[torch.device("cpu")] * 2)),
+               JaxClient(jax_create_state()))
     monkeypatch.setenv("OSCILLINK_SHARDED_MIN_N", "1")
-    r = client.post(path, json_body={"Y": [[1.0, 0.0], [0.0, 1.0]], "chain": [0, 1],
-                                     "psis": [[1.0, 0.0]]})
-    assert r.status_code == 503 and "queue A item 11" in r.json()["detail"]
+    body = {"Y": [[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.5, 1.0]], "chain": [0, 1, 3],
+            "psis": [[1.0, 0.0]], "bundle_k": 2}
+    port, jax = (_backend(c, path, body) for c in clients)
+    assert port == jax
+    # the batch's device route names no backend; every other path is sharded
+    assert port[2] == (None if path == "/v1/settle/batch" else "sharded")
 
 
 @pytest.fixture()
