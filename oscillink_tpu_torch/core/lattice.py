@@ -8,17 +8,22 @@ Receipts, state signatures and HMAC blocks are wire-compatible with the JAX
 package: the same inputs give the same ``state_sig``, and a receipt signed
 by either package verifies in the other.
 
-Window context (``OSCILLINK_WINDOWED_MATVEC``).  The JAX package routes
-``auto`` (its default) by constants calibrated on a TPU: N >= 32768,
-coverage >= 0.92 or a bounded straggler window, and a full-width memory
-budget.  None of those carry over to the H100 until ledger lines support
-them, so the port selects explicitly: ``1`` builds the context (locality
-order, device plan; the one-hots only on the CPU) and accepts it through
-`accept_window_plan`, the JAX package's forced decision — which still
-refuses a straggler overflow or a plan whose straggler window does not
-fit — while ``0``, ``auto`` and unset keep the gather path (``auto`` and unset log
-``window_ctx_skipped`` with the reason).  A lattice with a chain prior
-solves on the gather path whatever the context.
+Window context (``OSCILLINK_WINDOWED_MATVEC``).  The port routes as the
+JAX package does, by its branches in its order (`_maybe_build_window_ctx`):
+``0`` keeps the gather path, ``1`` forces the context, and ``auto`` (the
+default) builds it at N >= ``OSCILLINK_WINDOWED_MIN_N``, refuses it where
+the gather solve would chunk unless the full-width windowed solve fits
+``OSCILLINK_WINDOWED_FW_GB``, and accepts its plan at coverage >=
+``OSCILLINK_WINDOWED_MIN_COVERAGE`` or a straggler window of at most
+``OSCILLINK_WINDOWED_LOWCOV_SMAX`` rows (`accept_window_plan`, which also
+refuses a straggler overflow even when forced).  The names are the JAX
+package's; their defaults were read on the H100 (`WINDOWED_MIN_N_DEFAULT`,
+`ops.kernels.window_spmv.MIN_COVERAGE_DEFAULT` and `LOWCOV_SMAX_DEFAULT`,
+the card's memory for the budget; PERF.md's routing table).  The context
+holds the locality order and device plan, and the one-hots only on the CPU.
+The decision is made once, when the graph is built, and logged
+(``window_ctx`` or ``window_ctx_skipped`` with the reason).  A lattice with
+a chain prior solves on the gather path whatever the context.
 
 Column chunks and the low-memory CG (``OSCILLINK_COL_CHUNKS``).  Two
 working-set models, `_auto_col_chunks` (the windowed solves and the full
@@ -111,6 +116,7 @@ from ..ops.kernels.window_spmv import (
     build_onehot,
     build_window_plan_device,
     lowcov_smax_bound,
+    min_coverage,
     right_size_stragglers,
 )
 from ..ops import ivf as _ivf
@@ -249,6 +255,24 @@ def auto_col_chunks(n: int, d: int, k: int, capacity: int, routes: list[tuple[st
         ):
             return c
     return next((c for c in reversed(_CHUNK_COUNTS) if d % c == 0), 1)
+
+
+# The smallest N at which ``OSCILLINK_WINDOWED_MATVEC=auto`` considers the
+# windowed tier.  On an NVIDIA H100 80GB HBM3 at 700.00 W the windowed flow
+# (build with its context, settle, U*, full receipt) tied the gather flow at
+# every N from 8192 to 262144 on the locality corpus, coverage 1.0
+# (oscillink_tpu_torch/benchmarks/window_routing.py, PERF.md's routing
+# table), so no N is large enough: ``auto`` never routes by default.
+WINDOWED_MIN_N_DEFAULT = 2**62
+
+
+def _windowed_min_n() -> int:
+    """``OSCILLINK_WINDOWED_MIN_N``, read as the JAX package reads it: a value
+    that is not an integer gives the default, `WINDOWED_MIN_N_DEFAULT`."""
+    try:
+        return int(os.getenv("OSCILLINK_WINDOWED_MIN_N", str(WINDOWED_MIN_N_DEFAULT)))
+    except ValueError:
+        return WINDOWED_MIN_N_DEFAULT
 
 
 def _env_col_chunks(d: int) -> Optional[int]:
@@ -699,26 +723,52 @@ class OscillinkLattice:
         self._invalidate_cache()
 
     def _maybe_build_window_ctx(self) -> None:
-        """Build the windowed-matvec context when OSCILLINK_WINDOWED_MATVEC
-        forces it (see the module docstring for why the port does not
-        auto-route).  Order and plan are built on the lattice's device, and
-        the one-hots only on the CPU, whose plain versions read them; only
-        the plan's (coverage, stragglers, fits, last offset) scalars come to
-        the host.  Under column chunking (`_auto_col_chunks` > 1) the
-        context solves chunked, as the JAX package's forced context does."""
+        """Build the windowed-matvec context when enabled and worthwhile, by
+        the JAX package's branches in its order (see the module docstring).
+        ``OSCILLINK_WINDOWED_MATVEC``: ``0`` never, ``1`` forces it (still
+        refusing a straggler overflow), ``auto`` (the default) routes by N,
+        the column-chunk gate and full-width admission, and the plan's
+        coverage or straggler window.  Order and plan are built on the
+        lattice's device, the one-hots only on the CPU, whose plain versions
+        read them; only the plan's (coverage, stragglers, fits, last offset)
+        come to the host.  Every refusal logs ``window_ctx_skipped`` with its
+        reason, an accepted context ``window_ctx`` with ``accepted``."""
         self._window_ctx: Optional[WindowCtx] = None
         self._window_coverage: Optional[float] = None
         self._window_fullwidth = True
         mode = os.getenv("OSCILLINK_WINDOWED_MATVEC", "auto").strip().lower()
         if mode in {"0", "off", "false", "no"}:
             return
-        if mode not in {"1", "force", "on", "true"}:
-            self._log(
-                "window_ctx_skipped",
-                {"reason": "auto-routing is not calibrated on this device; "
-                           "set OSCILLINK_WINDOWED_MATVEC=1 to force the windowed tier"},
-            )
+        forced = mode in {"1", "force", "on", "true"}
+        min_n = _windowed_min_n()
+        if not forced and self.N < min_n:
+            # the JAX lattice returns here without a word; the port names it
+            self._log("window_ctx_skipped", {"reason": "small N", "n": self.N, "min_n": min_n})
             return
+        fw_required = False
+        if not forced and self._gather_col_chunks() > 1:
+            # the windowed tier is taken full width only: where the solve
+            # this lattice runs without a context chunks, admit the
+            # full-width windowed solve when its own working set fits the
+            # budget; an explicit OSCILLINK_COL_CHUNKS keeps the skip
+            fw_budget = self._windowed_fw_budget_gb()
+            floor_gb = self._windowed_fw_floor_gb()
+            if (
+                os.getenv("OSCILLINK_COL_CHUNKS", "").strip()
+                or fw_budget <= 0.0
+                or floor_gb > fw_budget
+            ):
+                self._log(
+                    "window_ctx_skipped",
+                    {
+                        "reason": "col-chunked solve",
+                        "col_chunks": self._gather_col_chunks(),
+                        "fw_floor_gb": round(floor_gb, 2),
+                    },
+                )
+                return
+            fw_required = True
+        min_cov = min_coverage()
         order, inv = _locality_order(self._Y_dev)
         strag_cap = max(1024, (self.N * self._kneighbors) // 10)
         strag_cap = ((strag_cap + 7) // 8) * 8
@@ -735,7 +785,10 @@ class OscillinkLattice:
                 [cov_t.double(), n_strag_t.double(), fits_t.double(), plan.strag_off[-1].double()]
             ).tolist()  # one host read
             cov, n_strag, fits, off_last = vals
-            ok, reason = accept_window_plan(n_strag, bool(fits), strag_cap)
+            ok, reason = accept_window_plan(
+                cov, n_strag, bool(fits), s_max, strag_cap,
+                forced=forced, min_cov=min_cov, lowcov_bound=lowcov_bound,
+            )
             return plan, cov, int(n_strag), int(off_last), ok, reason
 
         plan, cov, n_strag, off_last, ok, reason = try_plan(s_max, strag_cap)
@@ -754,6 +807,22 @@ class OscillinkLattice:
                 {"coverage": cov, "stragglers": n_strag, "s_max": s_max, "reason": reason},
             )
             return
+        if fw_required:
+            # the straggler terms are known only now: refuse a full-width
+            # solve whose whole working set exceeds the budget
+            est_gb = self._windowed_fw_est_gb(plan.n_pad, off_last, s_max, strag_cap,
+                                              win_w * n_windows)
+            if est_gb > self._windowed_fw_budget_gb():
+                self._log(
+                    "window_ctx_skipped",
+                    {
+                        "reason": "fw working set",
+                        "est_gb": round(est_gb, 2),
+                        "budget_gb": self._windowed_fw_budget_gb(),
+                        "col_chunks": self._gather_col_chunks(),
+                    },
+                )
+                return
         plan = right_size_stragglers(plan, off_last, s_max)
         oh = None
         if self.device.type == "cpu":
@@ -767,7 +836,9 @@ class OscillinkLattice:
                 oh = oh._replace(main=oh.main.to(torch.bfloat16))
         self._window_ctx = WindowCtx(plan=plan, order=order, inv_order=inv, W=win_w, s_max=s_max,
                                      oh=oh)
-        self._window_fullwidth = self._auto_col_chunks() <= 1
+        # a forced context under a chunked solve keeps the chunked windowed
+        # solves; every other accepted context solves full width
+        self._window_fullwidth = fw_required or self._auto_col_chunks() <= 1
         self._log(
             "window_ctx",
             {
@@ -1868,6 +1939,57 @@ class OscillinkLattice:
             return 1
         routes = [("settle", resident_blocks), ("ustar", resident_blocks)]
         return auto_col_chunks(self.N, self.D, self._kneighbors, capacity, routes)
+
+    def _gather_col_chunks(self) -> int:
+        """Column chunks of the solve this lattice runs without a window
+        context, the question the JAX lattice's chunk gate asks of its one
+        model: the gather settle and U* model (`_auto_col_chunks_gather`) at
+        the flow's steady state, Y, U and the U* cache resident."""
+        return self._auto_col_chunks_gather(3)
+
+    def _windowed_fw_budget_gb(self) -> float:
+        """GB the full-width windowed solve may take where the gather solve
+        would chunk.  ``OSCILLINK_WINDOWED_FW_GB`` overrides (0 disables the
+        admission; a value that is not a number is ignored); else the
+        card's memory less the headroom the working-set models keep
+        (`_HEADROOM_BYTES`), and 0 off the card, where the gather model does
+        not chunk by itself."""
+        raw = os.getenv("OSCILLINK_WINDOWED_FW_GB", "").strip()
+        if raw:
+            try:
+                return float(raw)
+            except ValueError:
+                pass
+        capacity = self._capacity()
+        return 0.0 if capacity is None else (capacity - _HEADROOM_BYTES) / 1e9
+
+    def _windowed_fw_floor_gb(self, n_pad: Optional[int] = None, oh_cols: int = 1152) -> float:
+        """The full-width windowed solve's working set before its plan is
+        built: `working_set_bytes`' windowed route (Y and U resident, its
+        live blocks, the graph), the plan's window arrays and the locality
+        order, and on the CPU the main one-hot [n_pad, oh_cols] its plain
+        versions read (the card's kernels read none)."""
+        if n_pad is None:
+            n_pad = -(-self.N // 384) * 384
+        n_win = oh_cols // 384
+        est = working_set_bytes(self.N, self.D, self._kneighbors, "windowed", 2)
+        est += n_win * (n_pad // 384) * 4 + n_win * n_pad * self._kneighbors * 8 + self.N * 8
+        if self.device.type == "cpu":
+            est += n_pad * oh_cols * (2 if _env_precision() in ("oh16", "dma16") else 4)
+        return est / 1e9
+
+    def _windowed_fw_est_gb(
+        self, n_pad: int, off_last: int, s_max: int, strag_cap: int, oh_cols: int
+    ) -> float:
+        """The whole working set after the plan's host read: the floor, the
+        straggler arrays cut as `right_size_stragglers` cuts them and the
+        blocks' offsets and counts, and on the CPU the [n_pad, s_max] bf16
+        straggler one-hot."""
+        keep = min(strag_cap, ((off_last + s_max + 127) // 128) * 128)
+        est = self._windowed_fw_floor_gb(n_pad, oh_cols) * 1e9 + 12 * keep + 8 * (n_pad // 384)
+        if self.device.type == "cpu":
+            est += 2 * n_pad * s_max
+        return est / 1e9
 
     def _invalidate_cache(self) -> None:
         self._Ustar_cache_dev = None

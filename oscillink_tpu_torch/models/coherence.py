@@ -55,6 +55,7 @@ __all__ = [
     "EnergyParams",
     "stationary_matvec",
     "solve_stationary",
+    "solve_stationary_donated",
     "settle_step",
     "solve_stationary_chunked",
     "settle_step_chunked",
@@ -156,10 +157,13 @@ def _apply_inplace(
 def _rhs_inplace(
     lam: EnergyParams, Y: torch.Tensor, psi: torch.Tensor, B: torch.Tensor,
     U: Optional[torch.Tensor] = None, dt: Optional[float] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`query_rhs` (or ``U + dt·query_rhs`` with U and dt) built into one
-    new block, row block by row block, with the same roundings."""
-    out = torch.empty_like(Y, memory_format=torch.contiguous_format)
+    new block, or into ``out`` (which may be Y itself), row block by row
+    block, with the same roundings."""
+    if out is None:
+        out = torch.empty_like(Y, memory_format=torch.contiguous_format)
     for sl in row_blocks(*Y.shape):
         t = lam.lamG * Y[sl]
         t.add_((B[sl, None] * psi[None, :]).mul_(lam.lamQ))
@@ -197,6 +201,40 @@ def solve_stationary(
         return stationary_matvec(g, pg, lam, B, X)
 
     return cg_solve(M_mul, rhs, x0=x0, M_diag=M_diag, tol=tol, max_iters=max_iters)
+
+
+def solve_stationary_donated(
+    g: Graph,
+    pg: Optional[PathGraph],
+    Y: torch.Tensor,
+    psi: torch.Tensor,
+    B: torch.Tensor,
+    lam: EnergyParams,
+    tol: float = 1e-4,
+    max_iters: int = 64,
+    x0: Optional[torch.Tensor] = None,
+):
+    """`solve_stationary` that consumes the caller's Y (the JAX package's
+    donated solve).  On the low-memory route (`_pick_cg`) the iterate copies
+    x0 (Y by default) first, then the right-hand side is built in Y's own
+    buffer, which CG goes on to use for its residual: one [N, D] block less
+    than `solve_stationary`, with the same roundings and result.  Below
+    `LOWMEM_SOLVE_BYTES`, or for a Y that is not contiguous float32, it is
+    `solve_stationary`.  The caller's Y is invalid afterwards: pass a Y
+    nothing else holds."""
+    if _pick_cg(Y) is not cg_solve_lowmem or not (Y.is_contiguous()
+                                                  and Y.dtype == torch.float32):
+        return solve_stationary(g, pg, Y, psi, B, lam, tol, max_iters, x0)
+    M_diag = lam.lamG + lam.lamQ * B
+    if pg is not None:
+        M_diag = M_diag + lam.lamP
+    x = torch.empty_like(Y)
+    x.copy_(Y if x0 is None else x0)
+    rhs = _rhs_inplace(lam, Y, psi, B, out=Y)
+    return cg_solve_lowmem(
+        lambda X: _apply_inplace(g, pg, lam, B, X), rhs, x0=x, M_diag=M_diag, tol=tol,
+        max_iters=max_iters, overwrite_x0=True, overwrite_b=True,
+    )
 
 
 def _chunk_width(d: int, col_chunks: int) -> int:

@@ -81,6 +81,7 @@ __all__ = [
     "plan_s_max",
     "pad_rows",
     "lowcov_smax_bound",
+    "min_coverage",
     "accept_window_plan",
     "right_size_stragglers",
     "lap_matvec_windowed",
@@ -101,6 +102,16 @@ DEFAULT_R = 256  # output row-block rows
 DEFAULT_SMAX = 512  # per-block straggler segment rows read by K3/K4
 _LANE = 8
 PRECISION_TIERS = ("bf16x3", "bf16x2", "bf16", "oh16", "dma16")
+# The routing constants' defaults, read on an NVIDIA H100 80GB HBM3 at
+# 700.00 W by oscillink_tpu_torch/benchmarks/window_routing.py (PERF.md's
+# routing table): the whole flow at 131072 x 768 x k8, median
+# of 3 passes a route.  The windowed flow won one rung of the coverage
+# ladder at s_max 384, the locality corpus with 2 % of its rows isotropic
+# (coverage 0.98194), and no rung below it, at any straggler window (384 to
+# 2560 rows): the lowest winning coverage is the bar, and the bounded-
+# straggler rule and the low-coverage retry are off (0).
+MIN_COVERAGE_DEFAULT = 0.9819
+LOWCOV_SMAX_DEFAULT = 0
 
 
 class WindowPlan(NamedTuple):
@@ -164,23 +175,53 @@ def _env_precision() -> str:
 
 
 def lowcov_smax_bound() -> int:
-    """``OSCILLINK_WINDOWED_LOWCOV_SMAX`` (default 768): the straggler
-    window (rows) of the low-coverage retry; "0" disables the retry."""
+    """``OSCILLINK_WINDOWED_LOWCOV_SMAX``: the straggler window (rows) of the
+    low-coverage retry, and the bounded-straggler rule's bound: under
+    ``auto`` a plan whose per-block straggler segments fit a window of at
+    most this many rows is accepted below the coverage bar.  "0" disables
+    both; a value that is not an integer gives the default,
+    `LOWCOV_SMAX_DEFAULT`."""
     try:
-        return int(os.getenv("OSCILLINK_WINDOWED_LOWCOV_SMAX", "768"))
+        return int(os.getenv("OSCILLINK_WINDOWED_LOWCOV_SMAX", str(LOWCOV_SMAX_DEFAULT)))
     except ValueError:
-        return 768
+        return LOWCOV_SMAX_DEFAULT
 
 
-def accept_window_plan(n_strag: float, fits: bool, strag_cap: float) -> tuple[bool, str]:
-    """``(accept, reason)`` for a forced window plan: a truncated straggler
-    list or a straggler window that does not fit is refused, anything else
-    accepted.  The JAX package's unforced branches (coverage and bounded
-    stragglers) belong to its auto-routing, which the port does not take
-    until it is calibrated on the card."""
+def min_coverage() -> float:
+    """``OSCILLINK_WINDOWED_MIN_COVERAGE``: the coverage at or above which
+    ``auto`` accepts a plan; a value that is not a number gives the default,
+    `MIN_COVERAGE_DEFAULT`."""
+    try:
+        return float(os.getenv("OSCILLINK_WINDOWED_MIN_COVERAGE", str(MIN_COVERAGE_DEFAULT)))
+    except ValueError:
+        return MIN_COVERAGE_DEFAULT
+
+
+def accept_window_plan(
+    cov: float,
+    n_strag: float,
+    fits: bool,
+    s_max: int,
+    strag_cap: float,
+    *,
+    forced: bool,
+    min_cov: float,
+    lowcov_bound: int,
+) -> tuple[bool, str]:
+    """``(accept, reason)`` for a window plan, the JAX package's rule in its
+    order.  A truncated straggler list or a straggler window that does not
+    fit is refused even when forced; otherwise a plan is accepted when
+    forced, at coverage ``>= min_cov``, or when its straggler window is
+    bounded (``0 < s_max <= lowcov_bound``), and refused as low coverage."""
     if n_strag > strag_cap or not fits:
         return False, "straggler overflow"
-    return True, "forced"
+    if forced:
+        return True, "forced"
+    if cov >= min_cov:
+        return True, "coverage"
+    if 0 < lowcov_bound and s_max <= lowcov_bound:
+        return True, "bounded stragglers"
+    return False, "low coverage"
 
 
 def right_size_stragglers(plan: WindowPlan, off_last: int, s_max: int) -> WindowPlan:

@@ -26,13 +26,14 @@ kernels instead (`ops.kernels.window_spmv.lap_matvec_windowed`: K3 at
 D % 128 == 0, K2 and its straggler epilogue otherwise) on per-shard window
 plans (`build_shard_window_plans`), and the halo slots through K1.
 `solve_auto` reorders, builds the graph on the mesh, measures the halo and
-picks the tier.  The port takes the windowed halo tier only when
-``OSCILLINK_WINDOWED_MATVEC`` forces it (1, force, on, true); under
-``auto`` or unset it takes the gather halo tier and says why in its info,
-as the port's lattice logs ``window_ctx_skipped``: the JAX package's
-unforced acceptance (coverage >= ``OSCILLINK_WINDOWED_MIN_COVERAGE``, or a
-bounded straggler window) is calibrated for the TPU, not this card, so the
-port does not read that variable.
+picks the tier.  Inside the halo tier, as in the JAX package, the windowed
+local matvec is taken when ``OSCILLINK_WINDOWED_MATVEC`` is not off, every
+shard has at least 1024 rows, and `accept_window_plan` accepts the shard
+plans: forced (1, force, on, true), or under ``auto`` (the default) at the
+shards' least coverage >= ``OSCILLINK_WINDOWED_MIN_COVERAGE`` or a shared
+straggler window of at most ``OSCILLINK_WINDOWED_LOWCOV_SMAX`` rows, the
+lattice's names and card-read defaults.  When ``auto`` refuses, the info's
+``window_skipped`` says why.
 """
 
 from __future__ import annotations
@@ -50,9 +51,12 @@ from ..ops.kernels.window_spmv import (
     OneHots,
     WindowPlan,
     _env_precision,
+    accept_window_plan,
     build_onehot,
     build_window_plan,
     lap_matvec_windowed,
+    lowcov_smax_bound,
+    min_coverage,
     pad_rows,
     plan_s_max,
 )
@@ -372,12 +376,11 @@ def solve_auto(
     the halo (`reorder.halo_stats`) and takes the halo tier when the mean
     halo is below ``halo_fraction_cutoff`` of the all-gather volume, else
     the all-gather tier.  Inside the halo tier the windowed local matvec
-    is taken only when ``OSCILLINK_WINDOWED_MATVEC`` forces it and a shard
-    has at least 1024 rows; ``OSCILLINK_GATHER_DTYPE`` picks the gather's
-    read type.  Returns (U* in the original row order on the host, info:
-    the tier, the halo statistics, the window coverage, iterations,
-    residual, the reason a windowed tier was not taken, and the stage
-    times in ms)."""
+    is taken as the module docstring says; ``OSCILLINK_GATHER_DTYPE`` picks
+    the gather's read type.  Returns (U* in the original row order on the host, info:
+    the tier, the halo statistics, the shard plans' least coverage and
+    shared straggler window, iterations, residual, the reason ``auto``
+    refused the windowed tier, and the stage times in ms)."""
     from .reorder import apply_order, halo_stats, pca_bisection_order
     from .sharded_build import build_graph_sharded
     from .shardmap_cg import shardmap_solve
@@ -406,19 +409,23 @@ def solve_auto(
 
     lam = EnergyParams.make(lamG, lamC, lamQ, 0.0, device=mesh.devices[0])
     use_halo = stats["halo_mean"] < halo_fraction_cutoff * stats["allgather_rows"]
-    win_cov, skipped = None, None
+    win_cov, win_smax, skipped = None, None, None
     if use_halo:
         plan = build_halo_plan(idx_h, w_h, n_dev)
         mode = _windowed_mode()
         wargs = None
         if mode not in {"0", "off", "false", "no"} and plan.rows_per >= 1024:
-            if mode in FORCED:
-                wplan, woh, win_cov, win_smax = build_shard_window_plans(
-                    plan, g.wn.cpu().numpy(), n_dev, mesh=mesh)
+            wplan, woh, win_cov, win_smax = build_shard_window_plans(
+                plan, g.wn.cpu().numpy(), n_dev, mesh=mesh)
+            # the host builder sizes s_max to the plans, so nothing
+            # overflows: coverage or the bounded straggler window decides
+            ok, reason = accept_window_plan(
+                win_cov, 0, True, win_smax, float("inf"), forced=mode in FORCED,
+                min_cov=min_coverage(), lowcov_bound=lowcov_smax_bound())
+            if ok:
                 wargs = (wplan, woh, win_smax)
             else:
-                skipped = ("auto-routing is not calibrated on this device; set "
-                           "OSCILLINK_WINDOWED_MATVEC=1 to force the windowed tier")
+                skipped = reason
         t0 = lap("plan", t0)
         if wargs is not None:
             U, it, res = halo_solve_windowed(mesh, g, plan, wargs[0], wargs[1], Y_s, psi, B_s,
@@ -438,6 +445,7 @@ def solve_auto(
         "tier": tier,
         "halo_stats": stats,
         "window_coverage": win_cov,
+        "window_s_max": win_smax,
         "window_skipped": skipped,
         "iters": int(it),
         "res": float(res),

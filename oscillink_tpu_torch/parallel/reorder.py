@@ -58,21 +58,24 @@ def pca_bisection_order(Y: np.ndarray, levels: int = 3, *,
     dev = resolve_device(device)
     Y = np.asarray(Y, dtype=np.float32)
     Yd = torch.from_numpy(np.ascontiguousarray(Y)).to(dev)
+    return _bisect(Yd, np.arange(Y.shape[0]), 1, levels)
 
-    def rec(ids: np.ndarray, depth: int) -> np.ndarray:
-        if len(ids) <= 2:
-            return ids
-        sel = torch.from_numpy(ids).to(dev)
-        proj = _segment_projection(Yd.index_select(0, sel)).cpu().numpy()
-        sorted_ids = ids[np.argsort(proj, kind="stable")]
-        if depth >= levels:
-            return sorted_ids
-        mid = len(sorted_ids) // 2
-        return np.concatenate(
-            [rec(sorted_ids[:mid], depth + 1), rec(sorted_ids[mid:], depth + 1)]
-        )
 
-    return rec(np.arange(Y.shape[0]), 1)
+def _bisect(Yd: torch.Tensor, ids: np.ndarray, depth: int, levels: int) -> np.ndarray:
+    """`pca_bisection_order`'s recursion on the rows ``ids`` of the device
+    copy ``Yd``.  A module function, not a closure: a closure that calls
+    itself is a reference cycle, which would hold ``Yd`` on the device
+    until the garbage collector ran."""
+    if len(ids) <= 2:
+        return ids
+    sel = torch.from_numpy(ids).to(Yd.device)
+    proj = _segment_projection(Yd.index_select(0, sel)).cpu().numpy()
+    sorted_ids = ids[np.argsort(proj, kind="stable")]
+    if depth >= levels:
+        return sorted_ids
+    mid = len(sorted_ids) // 2
+    return np.concatenate([_bisect(Yd, sorted_ids[:mid], depth + 1, levels),
+                           _bisect(Yd, sorted_ids[mid:], depth + 1, levels)])
 
 
 def apply_order(order: np.ndarray, *arrays: np.ndarray):

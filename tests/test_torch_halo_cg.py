@@ -13,9 +13,8 @@ their plain forms (the JAX ones in interpret mode), on the corpora of
   the JAX bf16 solve within BF16_REL in norm (1.8e-7 measured) and
   iterations equal; and apart from the port's f32 solve by more than
   BF16_REL (1.2e-4 measured), so a bf16 request that reads f32 fails.
-* `solve_auto`: the JAX tier choice; and the port's routing divergence,
-  pinned at rows_per >= 1024: under ``auto`` the windowed halo tier is
-  not taken, with the reason in the info (ROADMAP queue C).
+* `solve_auto`: the JAX tier choice (the windowed halo tier's routing is
+  held to the JAX package's in ``tests/test_torch_window_routing.py``).
 """
 
 import numpy as np
@@ -236,28 +235,3 @@ def test_solve_auto_bf16_tier_label(monkeypatch):
     _, info_j = jh.solve_auto(jax_mesh(8), Y, psi, k=6, tol=1e-3, max_iters=24)
     assert info["tier"] == info_j["tier"] == "halo-exchange-bf16gather"
     assert np.isfinite(U).all()
-
-
-@pytest.mark.parametrize("mode", ["auto", "1"])
-def test_solve_auto_windowed_routing_at_1024_rows_a_shard(monkeypatch, mode):
-    """8192 rows on 8 shards: 1024 rows a shard, where the JAX package
-    considers the windowed halo tier.  Forced, the port takes it too (and
-    agrees with the JAX tier); under ``auto`` the port keeps the gather
-    halo tier and says why, while the JAX package accepts the plan on its
-    coverage (ROADMAP queue C)."""
-    monkeypatch.setenv("OSCILLINK_WINDOWED_MATVEC", mode)
-    Y = _clustered(8192, 24, seed=3)
-    psi = np.random.default_rng(4).standard_normal(24).astype(np.float32)
-    U, info = th.solve_auto(lattice_mesh(devices=CPU8), Y, psi, k=6, tol=1e-6, max_iters=200)
-    Uj, info_j = jh.solve_auto(jax_mesh(8), Y, psi, k=6, tol=1e-6, max_iters=200)
-    assert info_j["tier"] == "halo-exchange-windowed" and info_j["window_coverage"] >= 0.92
-    if mode == "1":
-        assert info["tier"] == "halo-exchange-windowed"
-        assert info["window_coverage"] == info_j["window_coverage"]
-        assert info["window_skipped"] is None
-    else:
-        assert info["tier"] == "halo-exchange" and info["window_coverage"] is None
-        assert "OSCILLINK_WINDOWED_MATVEC=1" in info["window_skipped"]
-    # the two packages order this corpus with two near-tie swaps
-    # (tests/test_torch_reorder.py), so U is held in the original order
-    assert np.abs(U - Uj).max() / np.abs(Uj).max() < 5e-4 and abs(info["iters"] - info_j["iters"]) <= 1

@@ -160,3 +160,20 @@ def test_projection_runs_on_the_callers_device_in_f32(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pca_bisection_order(_random(8, 4, 0))
+
+
+def test_pca_bisection_order_leaves_no_reference_cycle():
+    """The recursion holds the device copy of Y; as a self-calling closure
+    it was a reference cycle that kept the copy alive until the garbage
+    collector ran (one [N, D] block a `solve_auto` call on the card)."""
+    import gc
+
+    Y = np.random.default_rng(0).standard_normal((2048, 16)).astype(np.float32)
+    gc.collect()
+    gc.disable()
+    try:
+        order = pca_bisection_order(Y, levels=4, device="cpu")
+        assert gc.collect() == 0
+    finally:
+        gc.enable()
+    assert np.array_equal(np.sort(order), np.arange(2048))

@@ -131,13 +131,12 @@ ACCEPT_CASES = [
 
 
 @pytest.mark.parametrize("case", ACCEPT_CASES)
-@pytest.mark.parametrize("forced", [True])  # the port does not auto-route
+@pytest.mark.parametrize("forced", [True, False])
 @pytest.mark.parametrize("lowcov", [0, 768])
 def test_accept_window_plan_matches_jax(case, forced, lowcov):
-    """The port decides only forced plans: as the JAX package decides them."""
+    """Forced and unforced plans: the port decides as the JAX package does."""
     kw = dict(forced=forced, min_cov=0.92, lowcov_bound=lowcov)
-    port = tw.accept_window_plan(case["n_strag"], case["fits"], case["strag_cap"])
-    assert port == ws.accept_window_plan(**case, **kw)
+    assert tw.accept_window_plan(**case, **kw) == ws.accept_window_plan(**case, **kw)
 
 
 @pytest.mark.parametrize("s_max", [128, 384])
@@ -171,9 +170,12 @@ def test_precision_tier_parser_matches_jax(monkeypatch, value):
     else:
         monkeypatch.setenv("OSCILLINK_WINDOW_PRECISION", value)
     assert tw._env_precision() == ws._env_precision()
-    for bound in ("512", "0", "x"):
+    for bound in ("512", "0"):
         monkeypatch.setenv("OSCILLINK_WINDOWED_LOWCOV_SMAX", bound)
         assert tw.lowcov_smax_bound() == ws.lowcov_smax_bound()
+    # a value that is not an integer gives each package's own default
+    monkeypatch.setenv("OSCILLINK_WINDOWED_LOWCOV_SMAX", "x")
+    assert tw.lowcov_smax_bound() == tw.LOWCOV_SMAX_DEFAULT
 
 
 def _kernel_case(n, d, seed, W=384, R=384, n_win=3, k=6):

@@ -271,7 +271,10 @@ def test_window_ctx_events_and_plan_match_jax(monkeypatch):
 @pytest.mark.parametrize("fused", ["1", "0"])
 def test_low_coverage_windowed_lattice_matches_jax(monkeypatch, fused):
     """Stragglers in most row blocks, through the low-coverage retry: the
-    straggler correction of K4 (fused) and K3 (unfused) at the lattice."""
+    straggler correction of K4 (fused) and K3 (unfused) at the lattice.  The
+    retry's bound is set, since the two packages' defaults differ (the JAX
+    package's 768; the port's 0, read on the card, turns the retry off)."""
+    monkeypatch.setenv("OSCILLINK_WINDOWED_LOWCOV_SMAX", "768")
     lj, lt = _windowed_pair(monkeypatch, 3000, 128, 0, fused=fused, n_centers=64, noise=1.0)
     ct = lt._window_ctx
     assert lt._window_coverage < 0.85 and ct.oh.strag.shape[1] == ct.s_max == 768
@@ -344,28 +347,3 @@ def test_lattice_refuses_a_graph_of_another_shape():
     bad.idx[3, 2] = 300
     with pytest.raises(ValueError, match=r"\[0, N\)"):
         pt.Oscillink(Y, kneighbors=6, device="cpu", graph=bad)
-
-
-@pytest.mark.parametrize("mode", [None, "auto", "0"])
-def test_gather_path_unless_forced(monkeypatch, mode):
-    """The port does not inherit the TPU router's constants: only
-    OSCILLINK_WINDOWED_MATVEC=1 builds a context; auto and unset say why."""
-    if mode is None:
-        monkeypatch.delenv("OSCILLINK_WINDOWED_MATVEC", raising=False)
-    else:
-        monkeypatch.setenv("OSCILLINK_WINDOWED_MATVEC", mode)
-    Y = _clustered(600, 32, seed=2)
-    lt = pt.Oscillink(Y, kneighbors=6, device="cpu")
-    assert lt._window_ctx is None and lt._window_coverage is None
-    events = []
-    lt.set_logger(lambda ev, p: events.append((ev, p)))
-    lt._maybe_build_window_ctx()
-    if mode == "0":
-        assert events == []
-    else:
-        assert events[0][0] == "window_ctx_skipped" and "OSCILLINK_WINDOWED_MATVEC=1" in events[0][1][
-            "reason"
-        ]
-    lt.set_query(_psi(Y))
-    lt.settle()
-    assert "window_precision" not in lt.receipt()["meta"]
