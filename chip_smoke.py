@@ -31,10 +31,14 @@ through the public entry points:
   branches driven under the JAX package's values, accepted on coverage
   (locality) and on bounded stragglers (clustered) through K4 and held to
   the gather flow, refused on the Gaussian corpus, and at 16384 against
-  the CPU lattice on the card's graph; and `solve_auto` under the default
-  environment (``window_routing_halo``): the gather halo tier on the
-  clustered corpus ("low coverage"), the windowed halo tier (K3) on the
-  locality corpus, held to the gather halo tier on the same graph;
+  the CPU lattice on the card's graph; and `solve_auto`
+  (``window_routing_halo``): under the default environment the gather halo
+  tier on the locality and clustered corpora ("low coverage", no shard plan
+  built), under the JAX package's values the windowed halo tier (K3) on
+  both (coverage; bounded stragglers), held to the gather halo tier on the
+  same graph and, on the locality corpus, to the single-device solve on
+  `solve_auto`'s own graph, with the neighbour lists that differ from a
+  graph built in the original row order counted;
 * the bucket-shuffle probe (K5, ``oscillink_tpu_torch.benchmarks.
   probe_bucket_gather``) at its full size, 126976 x 768 with 1015808 edges;
 * the multi-query serving paths, all through K1 (held to its plain version
@@ -330,6 +334,7 @@ HIER = dict(n=131072, d=768, k=8, shards=8)
 HIER_CPU = dict(n=16384, d=768, k=8, shards=8)
 SHARDED_MIN_N = "4096"  # the service's sharded threshold below the flagship's 5000 rows
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -338,7 +343,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def emit(tag: str, **fields) -> None:
-    print(json.dumps({"phase": tag, **fields}), flush=True)
+    """One JSON line a reading, stamped with the script's seconds so far
+    (``t_s``): the gaps between lines are the phases' times."""
+    print(json.dumps({"phase": tag, **fields, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def sync_ms(t0: float) -> float:
@@ -1182,59 +1189,121 @@ def window_routing() -> dict:
                          "card_vs_cpu": {"K4": small["launches"]}}}
 
 
+def halo_rule(info: dict, c: dict) -> tuple:
+    """The tier, ``window_skipped`` and reason the constants ``c`` give a
+    halo-tier `solve_auto` call whose shard plans are in ``info``: where no
+    plan can pass, gather as low coverage with no plan built."""
+    rule = dict(forced=c["mode"] in thalo.FORCED, min_cov=c["min_coverage"],
+                lowcov_bound=c["lowcov_smax"])
+    if not tw.can_accept(**rule):
+        return "halo-exchange", "low coverage", "low coverage"
+    ok, reason = tw.accept_window_plan(info["window_coverage"], 0, True, info["window_s_max"],
+                                       float("inf"), **rule)
+    return ("halo-exchange-windowed", None, reason) if ok else ("halo-exchange", reason, reason)
+
+
+def sorted_lists(g) -> torch.Tensor:
+    """Each row's live neighbour ids, sorted, padding (-1) last."""
+    ids = torch.where(g.w > 0, g.idx.long(), torch.full_like(g.idx, -1, dtype=torch.long))
+    return ids.sort(dim=1, descending=True).values
+
+
+def halo_graph_witness(mesh, Y: np.ndarray, psi: np.ndarray, k: int, U: np.ndarray) -> dict:
+    """What the windowed halo tier's U (original row order) agrees with on
+    the locality corpus, and why not with a lattice built from Y as given:
+    the neighbour lists of `solve_auto`'s graph (the PCA order, the sharded
+    build) that differ from `build_graph` on the same reordered Y and from
+    the lattice's graph built in the original order; U against the
+    single-device solve on `solve_auto`'s own graph (held at MESH_HALO_TOL)
+    and, as a reading only, against the original-order lattice's U*."""
+    n = Y.shape[0]
+    order = tpar.pca_bisection_order(Y, levels=4, device=CARD)
+    (Y_s,) = tpar.apply_order(order, Y)[:1]
+    g = tshbuild.build_graph_sharded(mesh, Y_s, k, similarity="auto")
+    Yd = torch.from_numpy(Y_s).to(CARD)
+    sim = tgraph.resolve_similarity(n, "auto")
+    g1 = tgraph.build_graph(Yd, k, similarity=sim)
+    lat = Oscillink(Y, kneighbors=k, similarity="auto", device=CARD)
+    lat.set_query(psi)
+    g_lat = permuted_graph(lat.graph, order)
+    ids = sorted_lists(g)
+    out = {"similarity": sim,
+           "lists_differ_vs_build_graph": int((ids != sorted_lists(g1)).any(1).sum()),
+           "lists_differ_vs_lattice": int((ids != sorted_lists(g_lat)).any(1).sum())}
+    lam = tcoh.EnergyParams.make(1.0, 0.5, 4.0, 0.0, device=CARD)
+    U1, it1, _ = tcoh.solve_stationary(g, None, Yd, torch.from_numpy(psi).to(CARD),
+                                       torch.ones(n, device=CARD), lam, tol=1e-4, max_iters=64)
+    out["vs_own_graph"] = hold_mesh_u("window_routing_halo locality own graph", U[order], U1,
+                                      MESH_HALO_TOL)
+    out["own_graph_iters"] = int(it1)
+    U_lat = lat._solve_ustar_device(tol=1e-4, max_iters=64)
+    ref = U_lat.index_select(0, torch.from_numpy(order).to(CARD))
+    got = torch.from_numpy(np.ascontiguousarray(U[order])).to(CARD)
+    out["vs_lattice_rel"] = float((got - ref).abs().max()) / float(ref.abs().max())
+    del g, g1, g_lat, lat, Yd, U1, U_lat, ref, got
+    return out
+
+
 def window_routing_halo() -> dict:
-    """`solve_auto` under the default environment at 131072 x 768 x k8 on 4
-    shards: the clustered corpus (shard coverage about 0.5: the gather halo
-    tier, "low coverage") and the locality corpus (coverage 1.0: the
-    windowed halo tier, accepted on coverage).  The tier and
-    ``window_skipped`` held to `accept_window_plan` on the plans' coverage
-    and straggler window with the constants in force; the launches to the
-    tier (K3 and K1 once a shard an apply windowed, K1 twice gathered); the
-    windowed U to the gather halo tier's on the same order and graph.""" 
+    """`solve_auto` at 131072 x 768 x k8 on 4 shards, on the locality corpus
+    (shard coverage 1.0) and the clustered corpus (about 0.5, a 640-row
+    straggler window).  Under the default environment no plan can pass the
+    rule, so both take the gather halo tier as "low coverage" and build no
+    shard plan.  Under the JAX package's values (`JAX_ROUTING`) the
+    unforced branch accepts on coverage (locality) and on bounded stragglers
+    (clustered).  Each tier and ``window_skipped`` held to `halo_rule`; the
+    launches to the tier (K3 and K1 once a shard an apply windowed, K1 twice
+    gathered); the windowed U to the gather halo tier's on the same order
+    and graph, and on the locality corpus to the single-device solve on the
+    same graph (`halo_graph_witness`)."""
     mesh = card_mesh()
     n, d, k = AUTO_MESH["n"], AUTO_MESH["d"], AUTO_MESH["k"]
+    default = {name: None for name in ROUTING_NAMES}
     rows = {}
-    with env(**{name: None for name in ROUTING_NAMES}):
-        consts = routing_constants()
-        for tag, (Y, psi), expect in (
-                ("clustered", clustered_corpus(n, d), "halo-exchange"),
-                ("locality", locality_corpus(n, d), "halo-exchange-windowed")):
-            st = mesh_step(lambda: tpar.solve_auto(mesh, Y, psi, k=k))
+    for tag, (Y, psi) in (("locality", locality_corpus(n, d)),
+                          ("clustered", clustered_corpus(n, d))):
+        outs = {}
+        for case, values, expect in ((tag, default, "halo-exchange"),
+                                     (f"{tag}_jax_values", {**default, **JAX_ROUTING},
+                                      "halo-exchange-windowed")):
+            with env(**values):
+                consts = routing_constants()
+                st = mesh_step(lambda: tpar.solve_auto(mesh, Y, psi, k=k))
             U, info = st.pop("out")
-            ok, reason = tw.accept_window_plan(
-                info["window_coverage"], 0, True, info["window_s_max"], float("inf"),
-                forced=False, min_cov=consts["min_coverage"], lowcov_bound=consts["lowcov_smax"])
-            want = "halo-exchange-windowed" if ok else "halo-exchange"
-            check(info["tier"] == want == expect,
-                  f"window_routing_halo {tag}: tier {info['tier']}, the rule gives {want}, "
+            tier, skipped, reason = halo_rule(info, consts)
+            check(info["tier"] == tier == expect and info["window_skipped"] == skipped,
+                  f"window_routing_halo {case}: tier {info['tier']} skipped "
+                  f"{info['window_skipped']!r}, the rule gives {tier} {skipped!r}, "
                   f"the sweep {expect}")
-            check(info["window_skipped"] == (None if ok else reason),
-                  f"window_routing_halo {tag}: window_skipped {info['window_skipped']!r}")
+            if values is default:
+                check(info["window_coverage"] is None,
+                      f"window_routing_halo {case}: shard plans built where none can pass")
             applies = MESH_SHARDS * (info["iters"] + 1)
-            if ok:
+            if tier == "halo-exchange-windowed":
                 check(st["launches"]["K3"] == applies and st["launches"]["K1"] == applies,
-                      f"window_routing_halo {tag}: launches {st['launches']}")
-                # the gather halo tier on the same order and graph (the
-                # locality corpus's near-duplicate rows tie, so a build in
-                # another row order is another graph)
-                with env(OSCILLINK_WINDOWED_MATVEC="0"):
-                    U_g, info_g = tpar.solve_auto(mesh, Y, psi, k=k)
-                rel = float(np.abs(U - U_g).max() / np.abs(U_g).max())
-                check(info_g["tier"] == "halo-exchange" and rel <= WINDOWED_HALO_TOL
-                      and abs(info["iters"] - info_g["iters"]) <= 1,
-                      f"window_routing_halo {tag}: windowed vs gather halo tier {rel}, "
-                      f"iterations {info['iters']} vs {info_g['iters']}")
-                info.update(windowed_vs_gather=rel, gather_iters=info_g["iters"])
-                del U_g
+                      f"window_routing_halo {case}: launches {st['launches']}")
             else:
                 check(st["launches"]["K1"] == 2 * applies and st["launches"]["K3"] == 0,
-                      f"window_routing_halo {tag}: launches {st['launches']}")
-            rows[tag] = {**info, "constants": consts, **st}
-            emit("window_routing_halo", case=tag, **AUTO_MESH, shards=MESH_SHARDS, **rows[tag])
-            del U
-            torch.cuda.empty_cache()
-    return {"launches": {tag: {key: r["launches"][key] for key in ("K1", "K3")}
-                         for tag, r in rows.items()}}
+                      f"window_routing_halo {case}: launches {st['launches']}")
+            outs[case] = U
+            rows[case] = {**info, "rule_reason": reason, "constants": consts, **st}
+        # the gather halo tier on the same order and graph (the reorder and
+        # the build are the same calls on the same Y)
+        U_g, U_w = outs[tag], outs[f"{tag}_jax_values"]
+        rel = float(np.abs(U_w - U_g).max() / np.abs(U_g).max())
+        it_g, it_w = rows[tag]["iters"], rows[f"{tag}_jax_values"]["iters"]
+        check(rel <= WINDOWED_HALO_TOL and abs(it_w - it_g) <= 1,
+              f"window_routing_halo {tag}: windowed vs gather halo tier {rel}, "
+              f"iterations {it_w} vs {it_g}")
+        rows[f"{tag}_jax_values"].update(windowed_vs_gather=rel, gather_iters=it_g)
+        if tag == "locality":
+            rows[f"{tag}_jax_values"]["graph_witness"] = halo_graph_witness(mesh, Y, psi, k, U_w)
+        for case in (tag, f"{tag}_jax_values"):
+            emit("window_routing_halo", case=case, **AUTO_MESH, shards=MESH_SHARDS, **rows[case])
+        del outs, U_g, U_w, Y, psi
+        torch.cuda.empty_cache()
+    return {"launches": {case: {key: r["launches"][key] for key in ("K1", "K3")}
+                         for case, r in rows.items()}}
 
 
 def windowed_flow(lat: Oscillink, psi) -> dict:
@@ -4258,7 +4327,8 @@ def main() -> int:
     default_launches = {
         key: sum(row.get(key, 0) for tag, row in routing["launches"].items()
                  if tag in ("locality", "gaussian", "small"))
-        + sum(row.get(key, 0) for row in routing_halo["launches"].values())
+        + sum(row.get(key, 0) for tag, row in routing_halo["launches"].items()
+              if not tag.endswith("jax_values"))
         for key in ("K2", "K3", "K4")}
 
     # 11. the windowed tier under column chunks: K4 and K3 at D/c = 384, K2

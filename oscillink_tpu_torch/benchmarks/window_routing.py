@@ -36,12 +36,23 @@ Sweeps (``--sweep``, all by default), at 768 × k8:
   `halo_solve_windowed` (the shard window plans' build included) against
   `halo_solve`, after the tier choice `solve_auto` makes (a corpus whose halo
   sends it to the all-gather tier has no windowed decision).
+* ``auto`` (not in the default set): `solve_auto` on the same ladder on 4
+  shards under the environment in force, the whole call a user makes, timed
+  with the tier it took.  Run from two checkouts, it compares their default
+  paths; ``--summarize`` prints each file's medians and halo-tier sums.
+
+Each bar is read as MIN_N is: it holds only where windowed wins every rung
+past it (`derive`), so one win among ties and losses sets nothing.
 
     python3 -m oscillink_tpu_torch.benchmarks.window_routing [--sweep min_n,ladder,halo]
         [--passes 3] [--out window_routing.jsonl]
+    python3 -m oscillink_tpu_torch.benchmarks.window_routing \
+        --derive oscillink_tpu_torch/benchmarks/window_routing_h100.jsonl
 
 prints one JSON line a case and a last line with the constants the rule
-gives, and appends every line to ``--out``.  It runs on ``cuda`` and raises
+gives, and appends every line to ``--out``; ``--derive`` prints the
+constants an earlier run's file gives (``window_routing_h100.jsonl`` holds
+the readings the port's defaults rest on).  It runs on ``cuda`` and raises
 without it; ``--device cpu --small`` rehearses the control flow at toy sizes
 (its times say nothing of the card).
 """
@@ -329,31 +340,108 @@ def halo_compare(tag: str, Y, psi, device: torch.device, passes: int, shards: in
             "verdict": verdict(res["windowed"], res["gather"])}
 
 
+def auto_time(tag: str, Y, psi, device: torch.device, passes: int, shards: int) -> dict:
+    """`solve_auto` as a user calls it, under the environment in force (the
+    package's defaults unless set), on ``shards`` shards of one device: the
+    whole call (reorder, sharded build, halo and shard plans, solve) timed
+    to a sync, median of ``passes`` after one untimed call, its spread, the
+    stage medians, and the tier it took and why."""
+    from ..parallel import halo_cg
+    from ..parallel.mesh import lattice_mesh
+
+    mesh = lattice_mesh(devices=[device] * shards)
+    runs = []
+    for i in range(passes + 1):
+        _sync(device)
+        t0 = time.perf_counter()
+        _, info = halo_cg.solve_auto(mesh, Y, psi, k=K)
+        _sync(device)
+        if i:
+            runs.append((1000.0 * (time.perf_counter() - t0), info))
+    ms = [r[0] for r in runs]
+    info = runs[-1][1]
+    stages = {key: statistics.median(r[1]["stage_ms"][key] for r in runs)
+              for key in info["stage_ms"]}
+    return {"sweep": "auto", "case": tag, "n": Y.shape[0], "d": Y.shape[1], "k": K,
+            "shards": shards, "tier": info["tier"],
+            "window_skipped": info.get("window_skipped"),
+            "window_coverage": info.get("window_coverage"), "iters": info["iters"],
+            "ms": statistics.median(ms), "spread_ms": max(ms) - min(ms), "passes_ms": ms,
+            "stage_ms": stages}
+
+
 # -- the constants the rule gives ------------------------------------------------------
 
 
 def derive(min_n_rows: list, ladder_rows: list) -> dict:
-    """MIN_N: the smallest swept N from which windowed wins at every larger
-    N (None where it does not win at the largest).  MIN_COVERAGE: the
-    lowest plan coverage at which windowed wins at s_max 384 (None where it
-    wins at none).  LOWCOV_SMAX: the largest straggler window at which it
-    still wins below that bar, where only the bounded-straggler rule could
-    accept a plan (0 where it never does)."""
-    min_n = None
-    for row in sorted(min_n_rows, key=lambda r: r["n"], reverse=True):
-        if row["verdict"] != "windowed":
-            break
-        min_n = row["n"]
-    wins = [r["windowed"] for r in ladder_rows if r["verdict"] == "windowed"]
-    min_cov = min((w["coverage"] for w in wins if w["s_max"] == 384), default=None)
-    bar = 2.0 if min_cov is None else min_cov
+    """The constants the readings give, each read as MIN_N is: from a bar
+    on, windowed must win every rung, so a single win between ties and
+    losses sets nothing.  MIN_N: the smallest swept N from which windowed
+    wins at every larger N (None where it does not win at the largest).
+    MIN_COVERAGE: the lowest coverage at s_max 384 from which windowed wins
+    at every rung of that coverage or higher (None where it does not win at
+    the highest).  LOWCOV_SMAX: the largest straggler window s such that
+    windowed wins at every rung below that bar (every rung where there is
+    none) whose straggler window is at most s: the plans the
+    bounded-straggler rule would accept (0 where it loses or ties at the
+    smallest)."""
+
+    def bar(rows: list, key, descending: bool):
+        # the last value v, walking from the most favourable end, such that
+        # windowed wins every row from that end up to v
+        out = None
+        for v in sorted({key(r) for r in rows}, reverse=descending):
+            past = [r for r in rows if (key(r) >= v if descending else key(r) <= v)]
+            if any(r["verdict"] != "windowed" for r in past):
+                break
+            out = v
+        return out
+
+    min_n = bar(min_n_rows, lambda r: r["n"], True)
+    min_cov = bar([r for r in ladder_rows if r["windowed"]["s_max"] == 384],
+                  lambda r: r["windowed"]["coverage"], True)
+    below = [r for r in ladder_rows if min_cov is None or r["windowed"]["coverage"] < min_cov]
+    lowcov = bar(below, lambda r: r["windowed"]["s_max"], False)
     return {
         "min_n": min_n,
         "min_coverage": min_cov,
-        "lowcov_smax": max((w["s_max"] for w in wins if w["coverage"] < bar), default=0),
+        "lowcov_smax": lowcov or 0,
         "rule": "a route wins when its median flow is lower by more than the larger spread; "
-                "a tie routes gather",
+                "a tie routes gather; a bar holds only where windowed wins every rung past it",
     }
+
+
+def read_rows(path: str) -> tuple[list, list]:
+    """The ``min_n`` and ``ladder`` rows of an earlier run's ``--out`` file."""
+    min_n_rows, ladder_rows = [], []
+    with open(path) as fh:
+        for line in fh:
+            row = json.loads(line)
+            if row.get("sweep") == "min_n":
+                min_n_rows.append(row)
+            elif row.get("sweep") == "ladder":
+                ladder_rows.append(row)
+    return min_n_rows, ladder_rows
+
+
+def summarize_auto(paths: list) -> list:
+    """For each ``--sweep auto`` file: each case's call and plan-stage
+    medians, and their sums over the cases that took a halo tier (the
+    tiers where the windowed decision is made)."""
+    out = []
+    for path in paths:
+        with open(path) as fh:
+            rows = [r for r in map(json.loads, fh) if r.get("sweep") == "auto"]
+        halo = [r for r in rows if r["tier"].startswith("halo")]
+        out.append({"file": path,
+                    "cases": {r["case"]: {"ms": r["ms"], "spread_ms": r["spread_ms"],
+                                          "plan_ms": r["stage_ms"].get("plan"),
+                                          "tier": r["tier"],
+                                          "window_skipped": r["window_skipped"]}
+                              for r in rows},
+                    "halo_ms_sum": sum(r["ms"] for r in halo),
+                    "halo_plan_ms_sum": sum(r["stage_ms"]["plan"] for r in halo)})
+    return out
 
 
 def main(argv=None) -> int:
@@ -363,7 +451,19 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true", help="toy sizes, to rehearse the flow")
     ap.add_argument("--out", default="")
+    ap.add_argument("--derive", default="", metavar="JSONL",
+                    help="print the constants an earlier run's --out file gives, and exit "
+                         "(no device needed)")
+    ap.add_argument("--summarize", nargs="+", default=[], metavar="JSONL",
+                    help="print each --sweep auto file's medians and halo-tier sums, and exit")
     args = ap.parse_args(argv)
+    if args.derive:
+        print(json.dumps({"derived": derive(*read_rows(args.derive)), "from": args.derive}))
+        return 0
+    if args.summarize:
+        for row in summarize_auto(args.summarize):
+            print(json.dumps(row))
+        return 0
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("window_routing: CUDA was requested but is not available")
@@ -408,6 +508,10 @@ def main(argv=None) -> int:
         for tag, make in ladder:
             Y, psi = make()
             emit({"sweep": "halo", **halo_compare(tag, Y, psi, device, args.passes, SHARDS)})
+    if "auto" in sweeps:
+        for tag, make in ladder:
+            Y, psi = make()
+            emit(auto_time(tag, Y, psi, device, args.passes, SHARDS))
     if min_n_rows or ladder_rows:
         emit({"derived": derive(min_n_rows, ladder_rows)})
     return 0

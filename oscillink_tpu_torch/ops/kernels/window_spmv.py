@@ -83,6 +83,7 @@ __all__ = [
     "lowcov_smax_bound",
     "min_coverage",
     "accept_window_plan",
+    "can_accept",
     "right_size_stragglers",
     "lap_matvec_windowed",
     "k_matvec_windowed",
@@ -104,13 +105,15 @@ _LANE = 8
 PRECISION_TIERS = ("bf16x3", "bf16x2", "bf16", "oh16", "dma16")
 # The routing constants' defaults, read on an NVIDIA H100 80GB HBM3 at
 # 700.00 W by oscillink_tpu_torch/benchmarks/window_routing.py (PERF.md's
-# routing table): the whole flow at 131072 x 768 x k8, median
-# of 3 passes a route.  The windowed flow won one rung of the coverage
-# ladder at s_max 384, the locality corpus with 2 % of its rows isotropic
-# (coverage 0.98194), and no rung below it, at any straggler window (384 to
-# 2560 rows): the lowest winning coverage is the bar, and the bounded-
-# straggler rule and the low-coverage retry are off (0).
-MIN_COVERAGE_DEFAULT = 0.9819
+# routing table; its `--derive` on the committed readings
+# window_routing_h100.jsonl): the whole flow at 131072 x 768 x k8, median of
+# 3 passes a route.  The windowed flow won no coverage from which it wins at
+# every rung above: at coverage 1.0 the routes tie, and the one windowed
+# verdict (coverage 0.98194) and the gather ones below it came from the
+# build and the receipt, which run the same code on both routes.  So
+# coverage (at most 1) never meets the bar, and the bounded-straggler rule
+# and the low-coverage retry are off (0): `auto` never accepts a plan.
+MIN_COVERAGE_DEFAULT = 2.0
 LOWCOV_SMAX_DEFAULT = 0
 
 
@@ -222,6 +225,14 @@ def accept_window_plan(
     if 0 < lowcov_bound and s_max <= lowcov_bound:
         return True, "bounded stragglers"
     return False, "low coverage"
+
+
+def can_accept(*, forced: bool, min_cov: float, lowcov_bound: int) -> bool:
+    """Whether `accept_window_plan` can accept any plan under these
+    settings: forced, a coverage bar a plan can meet (coverage is at most
+    1), or the bounded-straggler rule on.  Where it cannot, every plan is
+    refused as low coverage, so a caller may skip building one."""
+    return forced or min_cov <= 1.0 or lowcov_bound > 0
 
 
 def right_size_stragglers(plan: WindowPlan, off_last: int, s_max: int) -> WindowPlan:

@@ -33,7 +33,9 @@ plans: forced (1, force, on, true), or under ``auto`` (the default) at the
 shards' least coverage >= ``OSCILLINK_WINDOWED_MIN_COVERAGE`` or a shared
 straggler window of at most ``OSCILLINK_WINDOWED_LOWCOV_SMAX`` rows, the
 lattice's names and card-read defaults.  When ``auto`` refuses, the info's
-``window_skipped`` says why.
+``window_skipped`` says why.  Under the card's defaults no plan can pass
+(`can_accept`), so ``auto`` refuses as low coverage without building the
+shard plans, and ``window_coverage`` is None.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ..ops.kernels.window_spmv import (
     accept_window_plan,
     build_onehot,
     build_window_plan,
+    can_accept,
     lap_matvec_windowed,
     lowcov_smax_bound,
     min_coverage,
@@ -414,18 +417,23 @@ def solve_auto(
         plan = build_halo_plan(idx_h, w_h, n_dev)
         mode = _windowed_mode()
         wargs = None
+        rule = dict(forced=mode in FORCED, min_cov=min_coverage(),
+                    lowcov_bound=lowcov_smax_bound())
         if mode not in {"0", "off", "false", "no"} and plan.rows_per >= 1024:
-            wplan, woh, win_cov, win_smax = build_shard_window_plans(
-                plan, g.wn.cpu().numpy(), n_dev, mesh=mesh)
-            # the host builder sizes s_max to the plans, so nothing
-            # overflows: coverage or the bounded straggler window decides
-            ok, reason = accept_window_plan(
-                win_cov, 0, True, win_smax, float("inf"), forced=mode in FORCED,
-                min_cov=min_coverage(), lowcov_bound=lowcov_smax_bound())
-            if ok:
-                wargs = (wplan, woh, win_smax)
+            if not can_accept(**rule):
+                # the rule refuses every plan (the card's defaults): the
+                # JAX decision without the plans' host build
+                skipped = "low coverage"
             else:
-                skipped = reason
+                wplan, woh, win_cov, win_smax = build_shard_window_plans(
+                    plan, g.wn.cpu().numpy(), n_dev, mesh=mesh)
+                # the host builder sizes s_max to the plans, so nothing
+                # overflows: coverage or the bounded straggler window decides
+                ok, reason = accept_window_plan(win_cov, 0, True, win_smax, float("inf"), **rule)
+                if ok:
+                    wargs = (wplan, woh, win_smax)
+                else:
+                    skipped = reason
         t0 = lap("plan", t0)
         if wargs is not None:
             U, it, res = halo_solve_windowed(mesh, g, plan, wargs[0], wargs[1], Y_s, psi, B_s,

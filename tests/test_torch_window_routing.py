@@ -17,6 +17,8 @@ retry, the full-width admission) and its halo tier's unforced branch
 (``oscillink_tpu/parallel/halo_cg.py`` `solve_auto`).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -33,6 +35,7 @@ from oscillink_tpu.ops.pallas import window_spmv as ws  # noqa: E402
 from oscillink_tpu.parallel import halo_cg as jh  # noqa: E402
 from oscillink_tpu.parallel.mesh import lattice_mesh as jax_mesh  # noqa: E402
 from oscillink_tpu_torch import interop  # noqa: E402
+from oscillink_tpu_torch.benchmarks import window_routing as wr  # noqa: E402
 from oscillink_tpu_torch.core import lattice as tl  # noqa: E402
 from oscillink_tpu_torch.models import coherence as tcoh  # noqa: E402
 from oscillink_tpu_torch.ops.kernels import window_spmv as tw  # noqa: E402
@@ -265,7 +268,7 @@ def test_routing_defaults_pin_perf_md(monkeypatch):
     H100 80GB HBM3 at 700 W; unset or unreadable names give them, as the
     JAX package's give its own."""
     assert tl.WINDOWED_MIN_N_DEFAULT == 2**62
-    assert tw.MIN_COVERAGE_DEFAULT == 0.9819
+    assert tw.MIN_COVERAGE_DEFAULT == 2.0
     assert tw.LOWCOV_SMAX_DEFAULT == 0
     lat = pt.Oscillink(_clustered(300, 16, seed=1), kneighbors=4, device="cpu")
     monkeypatch.setattr(tl.OscillinkLattice, "_capacity", lambda self: H100_BYTES)
@@ -282,6 +285,49 @@ def test_routing_defaults_pin_perf_md(monkeypatch):
         assert lat._windowed_fw_budget_gb() == (H100_BYTES - tl._HEADROOM_BYTES) / 1e9
     monkeypatch.setenv("OSCILLINK_WINDOWED_FW_GB", "17.7")
     assert lat._windowed_fw_budget_gb() == 17.7
+
+
+def test_defaults_are_what_the_committed_readings_give():
+    """`derive` on the committed H100 readings (PERF.md's routing table)
+    gives no MIN_N, no coverage bar and no straggler window, which the
+    defaults encode as a MIN_N and a bar no lattice or plan reaches and 0."""
+    path = Path(wr.__file__).with_name("window_routing_h100.jsonl")
+    got = wr.derive(*wr.read_rows(str(path)))
+    assert (got["min_n"], got["min_coverage"], got["lowcov_smax"]) == (None, None, 0)
+    assert tl.WINDOWED_MIN_N_DEFAULT > 2**40 and tw.MIN_COVERAGE_DEFAULT > 1.0
+    assert tw.LOWCOV_SMAX_DEFAULT == got["lowcov_smax"]
+    assert not tw.can_accept(forced=False, min_cov=tw.MIN_COVERAGE_DEFAULT,
+                             lowcov_bound=tw.LOWCOV_SMAX_DEFAULT)
+
+
+def _row(verdict, n=131072, cov=1.0, s_max=384):
+    return {"n": n, "verdict": verdict, "windowed": {"coverage": cov, "s_max": s_max}}
+
+
+@pytest.mark.parametrize("rows,ladder,want", [
+    # a winning run from the largest N sets MIN_N at its smallest
+    ([_row("tie", 8192), _row("windowed", 16384), _row("windowed", 32768)], [],
+     (16384, None, 0)),
+    # one win below a tie at the largest N sets nothing
+    ([_row("windowed", 8192), _row("tie", 16384)], [], (None, None, 0)),
+    # a win at coverage 0.98 under a tie at 1.0 sets no bar, and the tie at
+    # s_max 384 no straggler window
+    ([], [_row("tie"), _row("windowed", cov=0.98), _row("gather", cov=0.9, s_max=768)],
+     (None, None, 0)),
+    # wins from 1.0 down to 0.95, then a bounded window up to 768 below it
+    ([], [_row("windowed"), _row("windowed", cov=0.95), _row("tie", cov=0.9),
+          _row("windowed", cov=0.8, s_max=512), _row("windowed", cov=0.6, s_max=768),
+          _row("gather", cov=0.4, s_max=1024)],
+     (None, 0.95, 0)),
+    ([], [_row("windowed"), _row("windowed", cov=0.95),
+          _row("windowed", cov=0.8, s_max=512), _row("windowed", cov=0.6, s_max=768),
+          _row("gather", cov=0.4, s_max=1024)],
+     (None, 0.95, 768)),
+])
+def test_derive_reads_each_bar_as_min_n(rows, ladder, want):
+    """`derive` sets a bar only where windowed wins every rung past it."""
+    got = wr.derive(rows, ladder)
+    assert (got["min_n"], got["min_coverage"], got["lowcov_smax"]) == want
 
 
 def test_full_width_admission_cannot_fire_at_768_on_the_h100():
@@ -342,22 +388,8 @@ def _halo_corpus(n, d, seed):
     return centers[assign] + 0.3 * rng.standard_normal((n, d)).astype(np.float32)
 
 
-@pytest.mark.parametrize("mode,min_cov,want", [
-    (None, "0.92", ("halo-exchange-windowed", None)),
-    ("auto", "1.01", ("halo-exchange", "low coverage")),
-    ("1", "1.01", ("halo-exchange-windowed", None)),
-])
-def test_solve_auto_windowed_routing_as_jax(monkeypatch, mode, min_cov, want):
-    """4096 rows on 4 shards, 1024 rows a shard, where both packages consider
-    the windowed halo tier: unset at coverage 0.92 both take it on coverage;
-    at a bar above 1 with the bounded-straggler rule off both refuse it (the
-    port says why); forced, both take it.  The halo solves are stubbed in
-    both packages (this is the decision; tests/test_torch_halo_cg.py holds
-    the solves to the JAX package's)."""
-    _env(monkeypatch, OSCILLINK_WINDOWED_MATVEC=mode, OSCILLINK_WINDOWED_MIN_COVERAGE=min_cov,
-         OSCILLINK_WINDOWED_LOWCOV_SMAX="0")
-    n = 4096
-    taken = []
+def _stub_halo_solves(monkeypatch, n, taken):
+    """Both packages' halo solves replaced by stubs that record the tier."""
 
     def stub(pkg, tier):
         def solve(mesh, g, plan, *args, **kwargs):
@@ -370,6 +402,29 @@ def test_solve_auto_windowed_routing_as_jax(monkeypatch, mode, min_cov, want):
     for pkg, mod in (("jax", jh), ("torch", th)):
         monkeypatch.setattr(mod, "halo_solve", stub(pkg, "halo-exchange"))
         monkeypatch.setattr(mod, "halo_solve_windowed", stub(pkg, "halo-exchange-windowed"))
+
+
+@pytest.mark.parametrize("mode,min_cov,lowcov,want", [
+    (None, "0.92", "0", ("halo-exchange-windowed", None)),
+    ("auto", "1.01", "0", ("halo-exchange", "low coverage")),
+    ("1", "1.01", "0", ("halo-exchange-windowed", None)),
+    ("auto", "1.01", "768", ("halo-exchange-windowed", None)),
+    ("auto", "1.01", "1", ("halo-exchange", "low coverage")),
+])
+def test_solve_auto_windowed_routing_as_jax(monkeypatch, mode, min_cov, lowcov, want):
+    """4096 rows on 4 shards, 1024 rows a shard, where both packages consider
+    the windowed halo tier: unset at coverage 0.92 both take it on coverage;
+    at a bar above 1 with the bounded-straggler rule off both refuse it (the
+    port says why, and builds no shard plan: no plan could pass); forced,
+    both take it; above the bar, a straggler window of 768 rows bounds the
+    shards' (bounded stragglers) and one of 1 row does not.  The halo solves
+    are stubbed in both packages (this is the decision;
+    tests/test_torch_halo_cg.py holds the solves to the JAX package's)."""
+    _env(monkeypatch, OSCILLINK_WINDOWED_MATVEC=mode, OSCILLINK_WINDOWED_MIN_COVERAGE=min_cov,
+         OSCILLINK_WINDOWED_LOWCOV_SMAX=lowcov)
+    n = 4096
+    taken = []
+    _stub_halo_solves(monkeypatch, n, taken)
     Y = _halo_corpus(n, 24, seed=3)
     psi = np.random.default_rng(4).standard_normal(24).astype(np.float32)
     _, info = th.solve_auto(lattice_mesh(devices=[torch.device("cpu")] * 4), Y, psi, k=6)
@@ -377,4 +432,36 @@ def test_solve_auto_windowed_routing_as_jax(monkeypatch, mode, min_cov, want):
     assert taken == [("torch", want[0]), ("jax", want[0])]
     assert info["tier"] == info_j["tier"] == want[0]
     assert info["window_skipped"] == want[1]
-    assert info["window_coverage"] == pytest.approx(info_j["window_coverage"], abs=1e-6)
+    if lowcov == "0" and mode == "auto":
+        assert info["window_coverage"] is None
+    else:
+        assert info["window_coverage"] == pytest.approx(info_j["window_coverage"], abs=1e-6)
+
+
+def test_solve_auto_defaults_refuse_without_building_plans(monkeypatch):
+    """Under the port's defaults (names unset) no plan can pass the rule, so
+    `solve_auto` takes the gather halo tier as low coverage, the JAX rule's
+    decision for such constants, without building the shard window plans."""
+    for name in ("OSCILLINK_WINDOWED_MATVEC", "OSCILLINK_WINDOWED_MIN_COVERAGE",
+                 "OSCILLINK_WINDOWED_LOWCOV_SMAX"):
+        monkeypatch.delenv(name, raising=False)
+    assert not tw.can_accept(forced=False, min_cov=tw.min_coverage(),
+                             lowcov_bound=tw.lowcov_smax_bound())
+
+    def no_plans(*args, **kwargs):
+        raise AssertionError("the shard window plans were built")
+
+    monkeypatch.setattr(th, "build_shard_window_plans", no_plans)
+    n = 4096
+    taken = []
+    _stub_halo_solves(monkeypatch, n, taken)
+    Y = _halo_corpus(n, 24, seed=3)
+    psi = np.random.default_rng(4).standard_normal(24).astype(np.float32)
+    _, info = th.solve_auto(lattice_mesh(devices=[torch.device("cpu")] * 4), Y, psi, k=6)
+    assert taken == [("torch", "halo-exchange")]
+    assert (info["tier"], info["window_skipped"], info["window_coverage"]) == (
+        "halo-exchange", "low coverage", None)
+    ok, reason = tw.accept_window_plan(1.0, 0, True, 128, float("inf"), forced=False,
+                                       min_cov=tw.min_coverage(),
+                                       lowcov_bound=tw.lowcov_smax_bound())
+    assert (ok, reason) == (False, "low coverage")
