@@ -198,7 +198,8 @@ from oscillink_tpu_torch.service import api as tapi
 from oscillink_tpu_torch.service import config as tconfig
 from oscillink_tpu_torch.service.warmup import run_warmup
 from oscillink_tpu_torch.utils.debug_report import generate_debug_report
-from oscillink_tpu_torch.utils.profiling import device_memory_stats, trace as profiler_trace
+from oscillink_tpu_torch.utils.profiling import device_memory_stats, recording
+from oscillink_tpu_torch.utils.profiling import trace as profiler_trace
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -2816,32 +2817,24 @@ def hold_service(tag: str, card: dict, cpu: dict, sig_equal: bool = True,
             "same_signed_payload": same_payload}
 
 
-PARSE_STEPS = ("json", "validate", "numpy")
+# The service's parse spans (`service/api.py`) by step: the JSON decode
+# (`ApiRequest.json`), the pydantic validation (`_parse`) and the numpy
+# conversion of the payload's arrays (`_np_array_or_400`).
+PARSE_STEPS = {"json": "service.decode", "validate": "service.validate", "numpy": "service.arrays"}
 
 
 @contextlib.contextmanager
 def parse_clock():
-    """Seconds the service spends parsing a request, by step: the JSON
-    decode (`ApiRequest.json`), the pydantic validation (`api._parse`) and
-    the numpy conversion of the payload's arrays (`api._np_array_or_400`)."""
+    """Seconds the service spends parsing the block's requests, by step, read
+    from the parse spans recorded in the block."""
     spent = dict.fromkeys(PARSE_STEPS, 0.0)
-    saved = (tapi.ApiRequest.json, tapi._parse, tapi._np_array_or_400)
-
-    def timed(step, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                spent[step] += time.perf_counter() - t0
-        return call
-
-    tapi.ApiRequest.json, tapi._parse, tapi._np_array_or_400 = (
-        timed(step, fn) for step, fn in zip(PARSE_STEPS, saved))
-    try:
+    step_of = {name: step for step, name in PARSE_STEPS.items()}
+    t0 = time.perf_counter_ns()
+    with recording() as rec:
         yield spent
-    finally:
-        tapi.ApiRequest.json, tapi._parse, tapi._np_array_or_400 = saved
+        for s in rec.spans:
+            if s.start_ns >= t0 and s.name in step_of:
+                spent[step_of[s.name]] += 1e-9 * (s.end_ns - s.start_ns)
 
 
 def service_call(client: LocalClient, path: str, data: bytes, headers=None) -> tuple:

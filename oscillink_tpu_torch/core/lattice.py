@@ -133,6 +133,7 @@ from ..ops.receipts import (
 )
 from ..preprocess.diffusion import gates_from_graph, gates_from_graph_batch
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import span
 from .receipts import sign_payload, verify_receipt
 
 __all__ = ["OscillinkLattice", "json_line_logger", "compute_graph_token", "compute_state_sig",
@@ -979,14 +980,15 @@ class OscillinkLattice:
         psi = np.asarray(psi, dtype=np.float32)
         if psi.shape != (self.D,):
             raise ValueError(f"psi must have shape ({self.D},), got {psi.shape}")
-        self.psi = psi.copy()
-        self._psi_dev = torch.from_numpy(self.psi).to(self.device)
-        if gates is not None:
-            if gates.shape[0] != self.N:
-                raise ValueError("gates length mismatch N")
-            self.B_diag = np.asarray(gates, dtype=np.float32).copy()
-            self._B_dev = torch.from_numpy(self.B_diag).to(self.device)
-        self._invalidate_cache()
+        with span("lattice.set_query"):
+            self.psi = psi.copy()
+            self._psi_dev = torch.from_numpy(self.psi).to(self.device)
+            if gates is not None:
+                if gates.shape[0] != self.N:
+                    raise ValueError("gates length mismatch N")
+                self.B_diag = np.asarray(gates, dtype=np.float32).copy()
+                self._B_dev = torch.from_numpy(self.B_diag).to(self.device)
+            self._invalidate_cache()
 
     def set_gates(self, gates: np.ndarray) -> None:
         if gates.shape[0] != self.N:
@@ -1041,73 +1043,74 @@ class OscillinkLattice:
         gather_cc = self._auto_col_chunks_gather(self._resident_blocks())
         windowed = self._window_ctx is not None and self._path is None
         fused = _fused_windowed_enabled() and self.lamC != 0.0 and float(dt) != 0.0
-        t0 = time.perf_counter()
-        if windowed and not self._window_fullwidth and self._auto_col_chunks() > 1:
-            U_plus, iters, res = settle_step_windowed_chunked(
-                self._window_ctx,
-                self._U_dev,
-                self._Y_dev,
-                self._psi_dev,
-                self._B_dev,
-                self._lam(),
-                dt=float(dt),
-                tol=tol,
-                max_iters=max_iters,
-                x0=x0,
-                use_jacobi=precond == "jacobi",
-                col_chunks=self._auto_col_chunks(),
-                fused=fused,
-            )
-        elif windowed:
-            step = settle_step_windowed_fused if fused else settle_step_windowed
-            U_plus, iters, res = step(
-                self._window_ctx,
-                self._U_dev,
-                self._Y_dev,
-                self._psi_dev,
-                self._B_dev,
-                self._lam(),
-                dt=float(dt),
-                tol=tol,
-                max_iters=max_iters,
-                x0=x0,
-                use_jacobi=precond == "jacobi",
-            )
-        elif gather_cc > 1:
-            U_plus, iters, res = settle_step_chunked(
-                self._graph,
-                self._path,
-                self._U_dev,
-                self._Y_dev,
-                self._psi_dev,
-                self._B_dev,
-                self._lam(),
-                dt=float(dt),
-                tol=tol,
-                max_iters=max_iters,
-                x0=x0,
-                use_jacobi=precond == "jacobi",
-                col_chunks=gather_cc,
-                donate_u=donate_ok,
-            )
-        else:
-            U_plus, iters, res = settle_step(
-                self._graph,
-                self._path,
-                self._U_dev,
-                self._Y_dev,
-                self._psi_dev,
-                self._B_dev,
-                self._lam(),
-                dt=float(dt),
-                tol=tol,
-                max_iters=max_iters,
-                x0=x0,
-                use_jacobi=precond == "jacobi",
-                donate_u=donate_ok,
-            )
-        self._U_dev = U_plus
-        self.last = SolveStats(iters=iters, res=res, t_ms=1000.0 * (time.perf_counter() - t0))
+        with span("lattice.settle"):
+            t0 = time.perf_counter()
+            if windowed and not self._window_fullwidth and self._auto_col_chunks() > 1:
+                U_plus, iters, res = settle_step_windowed_chunked(
+                    self._window_ctx,
+                    self._U_dev,
+                    self._Y_dev,
+                    self._psi_dev,
+                    self._B_dev,
+                    self._lam(),
+                    dt=float(dt),
+                    tol=tol,
+                    max_iters=max_iters,
+                    x0=x0,
+                    use_jacobi=precond == "jacobi",
+                    col_chunks=self._auto_col_chunks(),
+                    fused=fused,
+                )
+            elif windowed:
+                step = settle_step_windowed_fused if fused else settle_step_windowed
+                U_plus, iters, res = step(
+                    self._window_ctx,
+                    self._U_dev,
+                    self._Y_dev,
+                    self._psi_dev,
+                    self._B_dev,
+                    self._lam(),
+                    dt=float(dt),
+                    tol=tol,
+                    max_iters=max_iters,
+                    x0=x0,
+                    use_jacobi=precond == "jacobi",
+                )
+            elif gather_cc > 1:
+                U_plus, iters, res = settle_step_chunked(
+                    self._graph,
+                    self._path,
+                    self._U_dev,
+                    self._Y_dev,
+                    self._psi_dev,
+                    self._B_dev,
+                    self._lam(),
+                    dt=float(dt),
+                    tol=tol,
+                    max_iters=max_iters,
+                    x0=x0,
+                    use_jacobi=precond == "jacobi",
+                    col_chunks=gather_cc,
+                    donate_u=donate_ok,
+                )
+            else:
+                U_plus, iters, res = settle_step(
+                    self._graph,
+                    self._path,
+                    self._U_dev,
+                    self._Y_dev,
+                    self._psi_dev,
+                    self._B_dev,
+                    self._lam(),
+                    dt=float(dt),
+                    tol=tol,
+                    max_iters=max_iters,
+                    x0=x0,
+                    use_jacobi=precond == "jacobi",
+                    donate_u=donate_ok,
+                )
+            self._U_dev = U_plus
+            self.last = SolveStats(iters=iters, res=res, t_ms=1000.0 * (time.perf_counter() - t0))
         if self._logger is not None:
             self._log("settle", dict(self.last))
             if self.last["res"] > tol * 10:
@@ -1148,63 +1151,64 @@ class OscillinkLattice:
         # operator has no L_path term
         windowed = self._window_ctx is not None and self._path is None
         fused = _fused_windowed_enabled() and self.lamC != 0.0
-        t0 = time.perf_counter()
-        if windowed and not self._window_fullwidth and self._auto_col_chunks() > 1:
-            Ustar, iters, res = solve_stationary_windowed_chunked(
-                self._window_ctx,
-                self._Y_dev,
-                self._psi_dev,
-                self._B_dev,
-                self._lam(),
-                tol=tol,
-                max_iters=max_iters,
-                col_chunks=self._auto_col_chunks(),
-                x0=ustar_x0,
-                fused=fused,
+        with span("lattice.ustar"):
+            t0 = time.perf_counter()
+            if windowed and not self._window_fullwidth and self._auto_col_chunks() > 1:
+                Ustar, iters, res = solve_stationary_windowed_chunked(
+                    self._window_ctx,
+                    self._Y_dev,
+                    self._psi_dev,
+                    self._B_dev,
+                    self._lam(),
+                    tol=tol,
+                    max_iters=max_iters,
+                    col_chunks=self._auto_col_chunks(),
+                    x0=ustar_x0,
+                    fused=fused,
+                )
+            elif gather_cc > 1 and not windowed:
+                Ustar, iters, res = solve_stationary_chunked(
+                    self._graph,
+                    self._path,
+                    self._Y_dev,
+                    self._psi_dev,
+                    self._B_dev,
+                    self._lam(),
+                    tol=tol,
+                    max_iters=max_iters,
+                    col_chunks=gather_cc,
+                    x0=ustar_x0,
+                )
+            elif windowed:
+                solve = solve_stationary_windowed_fused if fused else solve_stationary_windowed
+                Ustar, iters, res = solve(
+                    self._window_ctx,
+                    self._Y_dev,
+                    self._psi_dev,
+                    self._B_dev,
+                    self._lam(),
+                    tol=tol,
+                    max_iters=max_iters,
+                    x0=ustar_x0,
+                )
+            else:
+                Ustar, iters, res = solve_stationary(
+                    self._graph,
+                    self._path,
+                    self._Y_dev,
+                    self._psi_dev,
+                    self._B_dev,
+                    self._lam(),
+                    tol=tol,
+                    max_iters=max_iters,
+                    x0=ustar_x0,
+                )
+            self.last_ustar = SolveStats(
+                solve_ms=1000.0 * (time.perf_counter() - t0),
+                iters=iters,
+                res=res,
+                converged=res <= float(np.float32(tol)),
             )
-        elif gather_cc > 1 and not windowed:
-            Ustar, iters, res = solve_stationary_chunked(
-                self._graph,
-                self._path,
-                self._Y_dev,
-                self._psi_dev,
-                self._B_dev,
-                self._lam(),
-                tol=tol,
-                max_iters=max_iters,
-                col_chunks=gather_cc,
-                x0=ustar_x0,
-            )
-        elif windowed:
-            solve = solve_stationary_windowed_fused if fused else solve_stationary_windowed
-            Ustar, iters, res = solve(
-                self._window_ctx,
-                self._Y_dev,
-                self._psi_dev,
-                self._B_dev,
-                self._lam(),
-                tol=tol,
-                max_iters=max_iters,
-                x0=ustar_x0,
-            )
-        else:
-            Ustar, iters, res = solve_stationary(
-                self._graph,
-                self._path,
-                self._Y_dev,
-                self._psi_dev,
-                self._B_dev,
-                self._lam(),
-                tol=tol,
-                max_iters=max_iters,
-                x0=ustar_x0,
-            )
-        self.last_ustar = SolveStats(
-            solve_ms=1000.0 * (time.perf_counter() - t0),
-            iters=iters,
-            res=res,
-            converged=res <= float(np.float32(tol)),
-        )
         if use_cache:
             self._Ustar_cache_dev = Ustar
             self._Ustar_cache_host = None
@@ -1241,167 +1245,174 @@ class OscillinkLattice:
         """Flagged null points as dicts plus their summary meta.  With
         OSCILLINK_RECEIPT_NULL_CAP = cap (0 < cap < N) only the cap rows of
         highest z leave the device."""
-        nflag, nj, nz, nr = null_points_sparse(self._graph, Ustar, self._lam().lamC, z_th=3.0)
-        cap = _null_cap_env()
-        if 0 < cap < self.N:
-            n_flagged = int(nflag.sum())
-            score = torch.where(nflag, nz, -torch.inf)
-            top_z, top_i = stable_topk(score[None, :], cap)
-            top_i = top_i[0]
+        with span("receipt.nulls"):
+            nflag, nj, nz, nr = null_points_sparse(self._graph, Ustar, self._lam().lamC, z_th=3.0)
+            cap = _null_cap_env()
+            if 0 < cap < self.N:
+                n_flagged = int(nflag.sum())
+                score = torch.where(nflag, nz, -torch.inf)
+                top_z, top_i = stable_topk(score[None, :], cap)
+                top_i = top_i[0]
+                rows = zip(
+                    top_i.tolist(), nj[top_i].tolist(), top_z[0].tolist(), nr[top_i].tolist()
+                )
+                nulls = [
+                    {"edge": [int(i), int(j)], "z": float(z), "residual": float(r)}
+                    for i, j, z, r in rows
+                    if np.isfinite(z)
+                ]
+                return nulls, {
+                    "total_null_points": n_flagged,
+                    "returned_null_points": len(nulls),
+                    "null_cap_applied": n_flagged > len(nulls),
+                }
+            rows_i = nflag.nonzero()[:, 0]
             rows = zip(
-                top_i.tolist(), nj[top_i].tolist(), top_z[0].tolist(), nr[top_i].tolist()
+                rows_i.tolist(), nj[rows_i].tolist(), nz[rows_i].tolist(), nr[rows_i].tolist()
             )
             nulls = [
                 {"edge": [int(i), int(j)], "z": float(z), "residual": float(r)}
                 for i, j, z, r in rows
-                if np.isfinite(z)
             ]
+            # a cap >= N never binds: at most N rows are flagged
             return nulls, {
-                "total_null_points": n_flagged,
+                "total_null_points": len(nulls),
                 "returned_null_points": len(nulls),
-                "null_cap_applied": n_flagged > len(nulls),
+                "null_cap_applied": False,
             }
-        rows_i = nflag.nonzero()[:, 0]
-        rows = zip(rows_i.tolist(), nj[rows_i].tolist(), nz[rows_i].tolist(), nr[rows_i].tolist())
-        nulls = [
-            {"edge": [int(i), int(j)], "z": float(z), "residual": float(r)}
-            for i, j, z, r in rows
-        ]
-        # a cap >= N never binds: at most N rows are flagged
-        return nulls, {
-            "total_null_points": len(nulls),
-            "returned_null_points": len(nulls),
-            "null_cap_applied": False,
-        }
 
     def receipt(self) -> dict[str, Any]:
         from .. import __version__ as pkg_version
 
-        Ustar = self._solve_ustar_device()
-        lam = self._lam()
-        if self._receipt_detail == "light":
-            dH_t = deltaH_trace(self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev)
-            nulls: list[dict[str, Any]] = []
-            null_meta = {
-                "total_null_points": 0,
-                "returned_null_points": 0,
-                "null_cap_applied": False,
-            }
-            coh_sum = anchor_sum = query_sum = 0.0
-        else:
-            cc = self._auto_col_chunks()
-            if cc > 1:
-                dH_t, *sums = receipt_full_chunked(
-                    self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev, self._Y_dev,
-                    self._psi_dev, cc,
-                )
-            else:
+        with span("lattice.receipt"):
+            Ustar = self._solve_ustar_device()
+            lam = self._lam()
+            if self._receipt_detail == "light":
                 dH_t = deltaH_trace(self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev)
-                sums = [t.sum() for t in per_node_components(
-                    self._graph, self._Y_dev, Ustar, lam, self._B_dev, self._psi_dev
-                )]
-            coh_sum, anchor_sum, query_sum = (float(t) for t in sums)
-            nulls, null_meta = self._null_points(Ustar)
-        deltaH_mode = "standard"
-        if _env_flag("OSCILLINK_DETERMINISTIC_RECEIPTS"):
-            dH_t = deltaH_trace_deterministic(
-                self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev
-            )
-            deltaH_mode = "deterministic-f64-tree"
-        dH = float(dH_t)
-
-        last_ustar = self.last_ustar
-        n_edges = self._n_edges
-        meta: dict[str, Any] = {
-            "ustar_cached": bool(self._last_ustar_from_cache),
-            "ustar_solves": int(self.stats["ustar_solves"]),
-            "ustar_cache_hits": int(self.stats["ustar_cache_hits"]),
-            "ustar_converged": bool(last_ustar["converged"]) if last_ustar else True,
-            "ustar_res": float(last_ustar["res"]) if last_ustar else 0.0,
-            "ustar_iters": int(last_ustar["iters"]) if last_ustar else 0,
-            "ustar_solve_ms": float(last_ustar["solve_ms"]) if last_ustar else 0.0,
-            "graph_build_ms": float(self._graph_build_ms),
-            "last_settle_ms": float(self.last.get("t_ms") or 0.0),
-            "deltaH_mode": deltaH_mode,
-            "avg_degree": float(n_edges / max(self.N, 1)),
-            "edge_density": float(n_edges / max(self.N * (self.N - 1), 1)),
-            "similarity": self._similarity,
-            "similarity_recall_target": float(_SIM_RECALL.get(self._similarity, 1.0)),
-            # the IVF build's realized mode and quality estimates, or
-            # {"mode": "imported"} for a stored adjacency
-            **(
-                {"similarity_info": self._similarity_info}
-                if self._similarity_info is not None
-                else {}
-            ),
-            # the active window precision tier, while a window context is
-            # active: tiers other than bf16x3 change the settle numerics
-            **({"window_precision": _env_precision()} if self._window_ctx is not None else {}),
-            "gates_min": float(np.min(self.B_diag)),
-            "gates_max": float(np.max(self.B_diag)),
-            "gates_mean": float(np.mean(self.B_diag)),
-            "gates_uniform": bool(np.allclose(self.B_diag, self.B_diag[0])),
-            "state_sig": self._signature(),
-            "receipt_detail": self._receipt_detail,
-            "null_points_summary": null_meta,
-        }
-
-        if self._receipt_secret is not None:
-            if self._signature_mode == "extended":
-                payload: dict[str, Any] = {
-                    "sig_v": 1,
-                    "mode": "extended",
-                    "state_sig": self._signature(),
-                    "deltaH_total": dH,
-                    "ustar_iters": meta["ustar_iters"],
-                    "ustar_res": meta["ustar_res"],
-                    "ustar_converged": meta["ustar_converged"],
-                    "params": {
-                        "lamG": self.lamG,
-                        "lamC": self.lamC,
-                        "lamQ": self.lamQ,
-                        "lamP": self.lamP,
-                    },
-                    "graph": {
-                        "k": self._kneighbors,
-                        "deterministic_k": self._deterministic_k,
-                        "neighbor_seed": self._neighbor_seed,
-                    },
+                nulls: list[dict[str, Any]] = []
+                null_meta = {
+                    "total_null_points": 0,
+                    "returned_null_points": 0,
+                    "null_cap_applied": False,
                 }
+                coh_sum = anchor_sum = query_sum = 0.0
             else:
-                payload = {
-                    "sig_v": 1,
-                    "mode": "minimal",
-                    "state_sig": self._signature(),
-                    "deltaH_total": dH,
-                }
-            meta["signature"] = {
-                "algorithm": "HMAC-SHA256",
-                "payload": payload,
-                "signature": sign_payload(payload, self._receipt_secret),
-            }
-            if self._receipt_secret_kid is not None:
-                meta["signature"]["kid"] = self._receipt_secret_kid
+                with span("receipt.energy"):
+                    cc = self._auto_col_chunks()
+                    if cc > 1:
+                        dH_t, *sums = receipt_full_chunked(
+                            self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev,
+                            self._Y_dev, self._psi_dev, cc,
+                        )
+                    else:
+                        dH_t = deltaH_trace(
+                            self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev
+                        )
+                        sums = [t.sum() for t in per_node_components(
+                            self._graph, self._Y_dev, Ustar, lam, self._B_dev, self._psi_dev
+                        )]
+                    coh_sum, anchor_sum, query_sum = (float(t) for t in sums)
+                nulls, null_meta = self._null_points(Ustar)
+            deltaH_mode = "standard"
+            if _env_flag("OSCILLINK_DETERMINISTIC_RECEIPTS"):
+                dH_t = deltaH_trace_deterministic(
+                    self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev
+                )
+                deltaH_mode = "deterministic-f64-tree"
+            dH = float(dH_t)
 
-        out: dict[str, Any] = {
-            "version": str(pkg_version),
-            "deltaH_total": dH,
-            "coh_drop_sum": float(coh_sum),
-            "anchor_pen_sum": float(anchor_sum),
-            "query_term_sum": float(query_sum),
-            "cg_iters": int(self.last.get("iters") or 0),
-            "residual": float(self.last.get("res") or 0.0),
-            "t_ms": float(self.last.get("t_ms") or 0.0),
-            "null_points": nulls,
-            "meta": meta,
-        }
-        if _env_flag("OSCILLINK_RECEIPT_DYNAMICS") and self._last_dynamics is not None:
-            meta["dynamics"] = self._last_dynamics
-        self._log(
-            "receipt",
-            {"deltaH_total": out["deltaH_total"], "ustar_cached": meta["ustar_cached"]},
-        )
-        return out
+            last_ustar = self.last_ustar
+            n_edges = self._n_edges
+            meta: dict[str, Any] = {
+                "ustar_cached": bool(self._last_ustar_from_cache),
+                "ustar_solves": int(self.stats["ustar_solves"]),
+                "ustar_cache_hits": int(self.stats["ustar_cache_hits"]),
+                "ustar_converged": bool(last_ustar["converged"]) if last_ustar else True,
+                "ustar_res": float(last_ustar["res"]) if last_ustar else 0.0,
+                "ustar_iters": int(last_ustar["iters"]) if last_ustar else 0,
+                "ustar_solve_ms": float(last_ustar["solve_ms"]) if last_ustar else 0.0,
+                "graph_build_ms": float(self._graph_build_ms),
+                "last_settle_ms": float(self.last.get("t_ms") or 0.0),
+                "deltaH_mode": deltaH_mode,
+                "avg_degree": float(n_edges / max(self.N, 1)),
+                "edge_density": float(n_edges / max(self.N * (self.N - 1), 1)),
+                "similarity": self._similarity,
+                "similarity_recall_target": float(_SIM_RECALL.get(self._similarity, 1.0)),
+                # the IVF build's realized mode and quality estimates, or
+                # {"mode": "imported"} for a stored adjacency
+                **(
+                    {"similarity_info": self._similarity_info}
+                    if self._similarity_info is not None
+                    else {}
+                ),
+                # the active window precision tier, while a window context is
+                # active: tiers other than bf16x3 change the settle numerics
+                **({"window_precision": _env_precision()} if self._window_ctx is not None else {}),
+                "gates_min": float(np.min(self.B_diag)),
+                "gates_max": float(np.max(self.B_diag)),
+                "gates_mean": float(np.mean(self.B_diag)),
+                "gates_uniform": bool(np.allclose(self.B_diag, self.B_diag[0])),
+                "state_sig": self._signature(),
+                "receipt_detail": self._receipt_detail,
+                "null_points_summary": null_meta,
+            }
+
+            if self._receipt_secret is not None:
+                if self._signature_mode == "extended":
+                    payload: dict[str, Any] = {
+                        "sig_v": 1,
+                        "mode": "extended",
+                        "state_sig": self._signature(),
+                        "deltaH_total": dH,
+                        "ustar_iters": meta["ustar_iters"],
+                        "ustar_res": meta["ustar_res"],
+                        "ustar_converged": meta["ustar_converged"],
+                        "params": {
+                            "lamG": self.lamG,
+                            "lamC": self.lamC,
+                            "lamQ": self.lamQ,
+                            "lamP": self.lamP,
+                        },
+                        "graph": {
+                            "k": self._kneighbors,
+                            "deterministic_k": self._deterministic_k,
+                            "neighbor_seed": self._neighbor_seed,
+                        },
+                    }
+                else:
+                    payload = {
+                        "sig_v": 1,
+                        "mode": "minimal",
+                        "state_sig": self._signature(),
+                        "deltaH_total": dH,
+                    }
+                meta["signature"] = {
+                    "algorithm": "HMAC-SHA256",
+                    "payload": payload,
+                    "signature": sign_payload(payload, self._receipt_secret),
+                }
+                if self._receipt_secret_kid is not None:
+                    meta["signature"]["kid"] = self._receipt_secret_kid
+
+            out: dict[str, Any] = {
+                "version": str(pkg_version),
+                "deltaH_total": dH,
+                "coh_drop_sum": float(coh_sum),
+                "anchor_pen_sum": float(anchor_sum),
+                "query_term_sum": float(query_sum),
+                "cg_iters": int(self.last.get("iters") or 0),
+                "residual": float(self.last.get("res") or 0.0),
+                "t_ms": float(self.last.get("t_ms") or 0.0),
+                "null_points": nulls,
+                "meta": meta,
+            }
+            if _env_flag("OSCILLINK_RECEIPT_DYNAMICS") and self._last_dynamics is not None:
+                meta["dynamics"] = self._last_dynamics
+            self._log(
+                "receipt",
+                {"deltaH_total": out["deltaH_total"], "ustar_cached": meta["ustar_cached"]},
+            )
+            return out
 
     def verify_current_receipt(self, secret: bytes | str) -> bool:
         return verify_receipt(self.receipt(), secret)
@@ -1457,20 +1468,25 @@ class OscillinkLattice:
         """Top-k bundle scored by alpha * z(coherence_drop) + (1 - alpha) *
         cos(U*, psi); ``diversify=True`` MMR-diversifies the picks,
         ``diversify=False`` returns the pure score ranking."""
-        Ustar = self._solve_ustar_device()
-        k_eff = min(max(int(k), 0), self.N)
-        if k_eff == 0:
-            return []
-        score, align = bundle_scores(
-            self._graph, self._Y_dev, Ustar, self._psi_dev, self._lam().lamC, float(np.float32(alpha))
-        )
-        if diversify:
-            picks = mmr_select(normalize_rows(self._Y_dev), score, k_eff, lambda_div=0.5)
-        else:
-            picks = stable_topk(score[None, :], k_eff)[1][0]
-        picks = picks.tolist()
-        score_h, align_h = score.cpu().numpy(), align.cpu().numpy()
-        return [{"id": int(i), "score": float(score_h[i]), "align": float(align_h[i])} for i in picks]
+        with span("lattice.bundle"):
+            Ustar = self._solve_ustar_device()
+            k_eff = min(max(int(k), 0), self.N)
+            if k_eff == 0:
+                return []
+            with span("bundle.scores"):
+                score, align = bundle_scores(
+                    self._graph, self._Y_dev, Ustar, self._psi_dev, self._lam().lamC,
+                    float(np.float32(alpha)),
+                )
+            with span("bundle.mmr"):
+                if diversify:
+                    picks = mmr_select(normalize_rows(self._Y_dev), score, k_eff, lambda_div=0.5)
+                else:
+                    picks = stable_topk(score[None, :], k_eff)[1][0]
+                picks = picks.tolist()
+                score_h, align_h = score.cpu().numpy(), align.cpu().numpy()
+            return [{"id": int(i), "score": float(score_h[i]), "align": float(align_h[i])}
+                    for i in picks]
 
     def _solve_batch_device(
         self, psis: np.ndarray, gates: Optional[np.ndarray], tol: float, max_iters: int
@@ -1882,16 +1898,17 @@ class OscillinkLattice:
         # memoized until the next state mutation
         if self._sig_memo is not None:
             return self._sig_memo
-        self._sig_memo = compute_state_sig(
-            self.psi,
-            self.B_diag,
-            [self.lamG, self.lamC, self.lamQ, self.lamP],
-            self._path is not None,
-            len(self._chain_nodes) if self._chain_nodes else 0,
-            self._kneighbors,
-            self._deterministic_k,
-            self._graph_token,
-        )
+        with span("lattice.signature"):
+            self._sig_memo = compute_state_sig(
+                self.psi,
+                self.B_diag,
+                [self.lamG, self.lamC, self.lamQ, self.lamP],
+                self._path is not None,
+                len(self._chain_nodes) if self._chain_nodes else 0,
+                self._kneighbors,
+                self._deterministic_k,
+                self._graph_token,
+            )
         return self._sig_memo
 
     def _resident_blocks(self) -> int:

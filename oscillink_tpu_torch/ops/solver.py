@@ -28,6 +28,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["cg_solve", "cg_solve_kpap", "cg_solve_lanes", "cg_solve_lowmem", "LOWMEM_SOLVE_BYTES",
            "row_blocks"]
 
@@ -135,7 +137,8 @@ def cg_solve_kpap(
         p = z + p * beta
         rz = rz_new
         it += 1
-        res = float(res_t)
+        with span("cg.wait"):
+            res = float(res_t)
     return x, it, res
 
 
@@ -218,7 +221,8 @@ def cg_solve_lanes(
             r = torch.where(keep, r_n, r)
             p = torch.where(keep, p_n, p)
             rz = torch.where(keep, rz_n, rz)
-        res_h = res_t.reshape(-1).tolist()  # the one host read of the iteration
+        with span("cg.wait"):
+            res_h = res_t.reshape(-1).tolist()  # the one host read of the iteration
         res = [e_n if a else e for a, e_n, e in zip(active, res_h, res)]
         it = [i + a for a, i in zip(active, it)]
     return x, np.asarray(it, dtype=np.int32), np.asarray(res, dtype=np.float32)
@@ -290,5 +294,6 @@ def cg_solve_lowmem(
             p[sl].mul_(beta).add_(r[sl] if inv_M is None else r[sl] * inv_M[sl])
         rz = rz_new
         it += 1
-        res = float(res_t)  # the one host read of the iteration
+        with span("cg.wait"):
+            res = float(res_t)  # the one host read of the iteration
     return x.view(b.shape), it, res

@@ -43,6 +43,7 @@ from ..native import NativeEngine
 from ..parallel.mesh import Mesh, lattice_mesh
 from ..preprocess.autocorrect import smart_correct
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import span
 from .billing import TIERS, price_map, tier_info
 from .cache import BundleCache, ReplayCache
 from .graph_cache import GraphCache, graph_cache_key
@@ -89,10 +90,11 @@ class ApiRequest:
         return self.headers.get(name.lower())
 
     def json(self) -> Any:
-        try:
-            return json.loads(self.body.decode("utf-8")) if self.body else {}
-        except Exception:
-            raise ApiError(400, "invalid JSON body") from None
+        with span("service.decode"):
+            try:
+                return json.loads(self.body.decode("utf-8")) if self.body else {}
+            except Exception:
+                raise ApiError(400, "invalid JSON body") from None
 
 
 @dataclass
@@ -267,19 +269,21 @@ def _check_diffusion_allowed(requested, feats) -> None:
 
 
 def _parse(model, payload):
-    try:
-        return model.model_validate(payload)
-    except ValidationError as e:
-        raise ApiError(422, e.errors(include_url=False).__repr__()) from None
+    with span("service.validate"):
+        try:
+            return model.model_validate(payload)
+        except ValidationError as e:
+            raise ApiError(422, e.errors(include_url=False).__repr__()) from None
 
 
 def _np_array_or_400(value, what: str) -> np.ndarray:
     """list -> float32 ndarray; ragged nested lists are a client error
     (pydantic's list[list[float]] accepts them, np.array raises)."""
-    try:
-        return np.array(value, dtype=np.float32)
-    except (ValueError, TypeError):
-        raise ApiError(400, f"{what} must be rectangular numeric") from None
+    with span("service.arrays"):
+        try:
+            return np.array(value, dtype=np.float32)
+        except (ValueError, TypeError):
+            raise ApiError(400, f"{what} must be rectangular numeric") from None
 
 
 def _validate_and_overrides(
@@ -337,71 +341,72 @@ def _build_lattice(
     """``pre`` is a prior _validate_and_overrides result: callers that
     already validated (to charge quota first) pass it to skip the duplicate
     Y conversion and the second learner/keystore read + RNG draw."""
-    Y, N, D, k_eff, eff, profile_id = (
-        pre if pre is not None else _validate_and_overrides(state, req, api_key)
-    )
-    lamG, lamC, lamQ = eff["lamG"], eff["lamC"], eff["lamQ"]
+    with span("service.build"):
+        Y, N, D, k_eff, eff, profile_id = (
+            pre if pre is not None else _validate_and_overrides(state, req, api_key)
+        )
+        lamG, lamC, lamQ = eff["lamG"], eff["lamC"], eff["lamQ"]
 
-    if req.params.similarity not in {"auto", "exact", "fast", "fastest", "cluster"}:
-        raise ApiError(
-            422, "params.similarity must be auto|exact|fast|fastest|cluster"
-        )
-    # opt-in cross-request graph cache (OSCILLINK_GRAPH_CACHE_SIZE > 0):
-    # long-lived corpus + churning queries is the dominant serving pattern,
-    # and the graph build dominates the device-path E2E.  Keyed per api key
-    # over every graph-determining input; a hit restores the device graph +
-    # window plan and is behaviorally identical to a rebuild (same token ->
-    # same signatures/receipts).  See service/graph_cache.py.
-    cache_key = None
-    if GraphCache.enabled():
-        cache_key = graph_cache_key(
-            # full=True: the sampled fingerprint is lossy above 128 MiB and
-            # a collision here would silently serve a stale graph
-            OscillinkLattice._hash_anchors(Y, full=True),
-            k_eff,
-            1.0,
-            bool(req.params.deterministic_k),
-            req.params.neighbor_seed,
-            req.params.similarity,
-            n=N,
-            d=D,
-        )
-        snap = state.graph_cache.get_snapshot(api_key, cache_key)
-        if snap is not None:
-            lat = OscillinkLattice(
-                Y,
-                kneighbors=k_eff,
-                lamG=lamG,
-                lamC=lamC,
-                lamQ=lamQ,
-                deterministic_k=req.params.deterministic_k,
-                neighbor_seed=req.params.neighbor_seed,
-                similarity=req.params.similarity,
-                _defer_graph=True,
-                device=state.device,
+        if req.params.similarity not in {"auto", "exact", "fast", "fastest", "cluster"}:
+            raise ApiError(
+                422, "params.similarity must be auto|exact|fast|fastest|cluster"
             )
-            lat._install_graph_snapshot(snap)
-            lat._graph_cache_status = "HIT"
-            state.metrics.graph_cache.labels(status="hit").inc()
-            _finish_lattice_request_state(lat, req, N, D)
-            return lat, N, D, k_eff, eff, profile_id
-    lat = OscillinkLattice(
-        Y,
-        kneighbors=k_eff,
-        lamG=lamG,
-        lamC=lamC,
-        lamQ=lamQ,
-        deterministic_k=req.params.deterministic_k,
-        neighbor_seed=req.params.neighbor_seed,
-        similarity=req.params.similarity,
-        device=state.device,
-    )
-    if cache_key is not None:
-        state.graph_cache.put_snapshot(api_key, cache_key, lat._graph_snapshot())
-        lat._graph_cache_status = "MISS"
-        state.metrics.graph_cache.labels(status="miss").inc()
-    _finish_lattice_request_state(lat, req, N, D)
-    return lat, N, D, k_eff, eff, profile_id
+        # opt-in cross-request graph cache (OSCILLINK_GRAPH_CACHE_SIZE > 0):
+        # long-lived corpus + churning queries is the dominant serving pattern,
+        # and the graph build dominates the device-path E2E.  Keyed per api key
+        # over every graph-determining input; a hit restores the device graph +
+        # window plan and is behaviorally identical to a rebuild (same token ->
+        # same signatures/receipts).  See service/graph_cache.py.
+        cache_key = None
+        if GraphCache.enabled():
+            cache_key = graph_cache_key(
+                # full=True: the sampled fingerprint is lossy above 128 MiB and
+                # a collision here would silently serve a stale graph
+                OscillinkLattice._hash_anchors(Y, full=True),
+                k_eff,
+                1.0,
+                bool(req.params.deterministic_k),
+                req.params.neighbor_seed,
+                req.params.similarity,
+                n=N,
+                d=D,
+            )
+            snap = state.graph_cache.get_snapshot(api_key, cache_key)
+            if snap is not None:
+                lat = OscillinkLattice(
+                    Y,
+                    kneighbors=k_eff,
+                    lamG=lamG,
+                    lamC=lamC,
+                    lamQ=lamQ,
+                    deterministic_k=req.params.deterministic_k,
+                    neighbor_seed=req.params.neighbor_seed,
+                    similarity=req.params.similarity,
+                    _defer_graph=True,
+                    device=state.device,
+                )
+                lat._install_graph_snapshot(snap)
+                lat._graph_cache_status = "HIT"
+                state.metrics.graph_cache.labels(status="hit").inc()
+                _finish_lattice_request_state(lat, req, N, D)
+                return lat, N, D, k_eff, eff, profile_id
+        lat = OscillinkLattice(
+            Y,
+            kneighbors=k_eff,
+            lamG=lamG,
+            lamC=lamC,
+            lamQ=lamQ,
+            deterministic_k=req.params.deterministic_k,
+            neighbor_seed=req.params.neighbor_seed,
+            similarity=req.params.similarity,
+            device=state.device,
+        )
+        if cache_key is not None:
+            state.graph_cache.put_snapshot(api_key, cache_key, lat._graph_snapshot())
+            lat._graph_cache_status = "MISS"
+            state.metrics.graph_cache.labels(status="miss").inc()
+        _finish_lattice_request_state(lat, req, N, D)
+        return lat, N, D, k_eff, eff, profile_id
 
 
 def _finish_lattice_request_state(lat, req, N: int, D: int) -> None:
@@ -742,12 +747,14 @@ def h_bundle(state: ServiceState, req: ApiRequest, **_) -> ApiResponse:
         t_ms = 0.0
     else:
         t0 = time.perf_counter()
-        stats = lat.settle(
-            dt=breq.options.dt, max_iters=breq.options.max_iters, tol=breq.options.tol
-        )
-        bundle = lat.bundle(
-            k=breq.bundle_k, alpha=breq.alpha, diversify=breq.diversify
-        )
+        with span("service.settle"):
+            stats = lat.settle(
+                dt=breq.options.dt, max_iters=breq.options.max_iters, tol=breq.options.tol
+            )
+        with span("service.bundle"):
+            bundle = lat.bundle(
+                k=breq.bundle_k, alpha=breq.alpha, diversify=breq.diversify
+            )
         t_ms = 1000.0 * (time.perf_counter() - t0)
         state.metrics.settle_counter.labels(status="ok").inc()
         state.metrics.settle_latency.observe(t_ms / 1000.0)
@@ -1737,24 +1744,25 @@ _route("GET", "/admin/introspect", h_admin_introspect)
 def handle(state: ServiceState, req: ApiRequest) -> ApiResponse:
     """Dispatch one request through governance + routing; never raises."""
     rid = req.header(REQUEST_ID_HEADER) or uuid.uuid4().hex
-    try:
-        state.rate_limiter.check_ip(req.remote_ip)
-        state.rate_limiter.check_global()
-        for method, regex, handler in _ROUTES:
-            if method != req.method.upper():
-                continue
-            m = regex.match(req.path)
-            if m:
-                resp = handler(state, req, **m.groupdict())
-                break
-        else:
-            resp = ApiResponse(status=404, body={"detail": "not found"})
-    except ApiError as e:
-        if e.kind:
-            state.metrics.rejections.labels(kind=e.kind).inc()
-        resp = ApiResponse(status=e.status, body={"detail": e.detail}, headers=dict(e.headers))
-    except Exception as e:  # pragma: no cover — defense in depth
-        resp = ApiResponse(status=500, body={"detail": f"internal error: {e}"})
+    with span("service.request", trace_id=rid):
+        try:
+            state.rate_limiter.check_ip(req.remote_ip)
+            state.rate_limiter.check_global()
+            for method, regex, handler in _ROUTES:
+                if method != req.method.upper():
+                    continue
+                m = regex.match(req.path)
+                if m:
+                    resp = handler(state, req, **m.groupdict())
+                    break
+            else:
+                resp = ApiResponse(status=404, body={"detail": "not found"})
+        except ApiError as e:
+            if e.kind:
+                state.metrics.rejections.labels(kind=e.kind).inc()
+            resp = ApiResponse(status=e.status, body={"detail": e.detail}, headers=dict(e.headers))
+        except Exception as e:  # pragma: no cover — defense in depth
+            resp = ApiResponse(status=500, body={"detail": f"internal error: {e}"})
     # security headers + request id (reference main.py:386-405)
     resp.headers.setdefault(REQUEST_ID_HEADER, rid)
     resp.headers.setdefault("X-Content-Type-Options", "nosniff")

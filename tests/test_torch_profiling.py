@@ -54,3 +54,5 @@ def test_trace_writes_a_chrome_trace_of_a_settle(tmp_path):
     names = {e.get("name", "") for e in events}
     # the CPU plain version of K1 gathers rows with index_select
     assert any("index_select" in n for n in names), sorted(names)[:20]
+    # the trace records the program's spans, by name
+    assert {"lattice.settle", "cg.wait"} <= names
