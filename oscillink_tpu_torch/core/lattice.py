@@ -131,6 +131,7 @@ from ..ops.receipts import (
     per_node_components,
     receipt_full_chunked,
 )
+from ..native.listing import list_null_points, pack_null_rows
 from ..preprocess.diffusion import gates_from_graph, gates_from_graph_batch
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.profiling import span
@@ -490,7 +491,12 @@ class OscillinkLattice:
         self._Ustar_cache_dev: Optional[torch.Tensor] = None
         self._Ustar_cache_host: Optional[np.ndarray] = None
         self._Ustar_sig: Optional[str] = None
-        self.stats: dict[str, int] = {"ustar_solves": 0, "ustar_cache_hits": 0}
+        self.stats: dict[str, int] = {
+            "ustar_solves": 0,
+            "ustar_cache_hits": 0,
+            "null_listings_native": 0,
+            "null_listings_python": 0,
+        }
         self._receipt_secret: Optional[bytes] = None
         self._receipt_secret_kid: Optional[str] = None
         self._signature_mode: str = "minimal"
@@ -1252,34 +1258,30 @@ class OscillinkLattice:
                 n_flagged = int(nflag.sum())
                 score = torch.where(nflag, nz, -torch.inf)
                 top_z, top_i = stable_topk(score[None, :], cap)
-                top_i = top_i[0]
-                rows = zip(
-                    top_i.tolist(), nj[top_i].tolist(), top_z[0].tolist(), nr[top_i].tolist()
-                )
-                nulls = [
-                    {"edge": [int(i), int(j)], "z": float(z), "residual": float(r)}
-                    for i, j, z, r in rows
-                    if np.isfinite(z)
-                ]
+                top_z, top_i = top_z[0], top_i[0]
+                rows = pack_null_rows(top_i, nj[top_i], top_z, nr[top_i])
+                nulls = self._list_nulls(rows[torch.isfinite(top_z)])
                 return nulls, {
                     "total_null_points": n_flagged,
                     "returned_null_points": len(nulls),
                     "null_cap_applied": n_flagged > len(nulls),
                 }
-            rows_i = nflag.nonzero()[:, 0]
-            rows = zip(
-                rows_i.tolist(), nj[rows_i].tolist(), nz[rows_i].tolist(), nr[rows_i].tolist()
-            )
-            nulls = [
-                {"edge": [int(i), int(j)], "z": float(z), "residual": float(r)}
-                for i, j, z, r in rows
-            ]
+            i = torch.arange(self.N, dtype=torch.int32, device=nflag.device)
+            rows = pack_null_rows(i, nj, nz, nr)
+            nulls = self._list_nulls(rows[nflag])
             # a cap >= N never binds: at most N rows are flagged
             return nulls, {
                 "total_null_points": len(nulls),
                 "returned_null_points": len(nulls),
                 "null_cap_applied": False,
             }
+
+    def _list_nulls(self, rows: torch.Tensor) -> list[dict]:
+        """The dicts of packed device rows: one copy to the host, then the
+        native listing (or its Python stand-in), counted in `stats`."""
+        nulls, native = list_null_points(rows.cpu())
+        self.stats["null_listings_native" if native else "null_listings_python"] += 1
+        return nulls
 
     def receipt(self) -> dict[str, Any]:
         from .. import __version__ as pkg_version

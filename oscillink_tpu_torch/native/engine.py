@@ -73,7 +73,12 @@ def _lib_path(flags: list[str]) -> Path:
 def _compile(flags: list[str]) -> Path:
     """The library for ``flags``, compiled unless it exists.  Raises
     NativeBuildError with the compiler's output."""
-    lib = _lib_path(flags)
+    return compile_library(_SRC, flags, _lib_path(flags))
+
+
+def compile_library(src: Path, flags: list[str], lib: Path) -> Path:
+    """``lib``, compiled from ``src`` by ``$CXX`` with ``flags`` unless it
+    exists.  Raises NativeBuildError with the compiler's output."""
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
@@ -81,7 +86,7 @@ def _compile(flags: list[str]) -> Path:
     # leave a truncated library that every later process finds, and the
     # rename makes concurrent builders race-safe
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_cxx(), *flags, str(_SRC), "-o", str(tmp)]
+    cmd = [_cxx(), *flags, str(src), "-o", str(tmp)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except subprocess.CalledProcessError as e:

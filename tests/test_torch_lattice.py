@@ -179,7 +179,12 @@ def test_ustar_cache_stats_logger_and_callbacks():
     lat.settle()
     U1 = lat.solve_Ustar()
     U2 = lat.solve_Ustar()
-    assert U1 is U2 and lat.stats == {"ustar_solves": 1, "ustar_cache_hits": 1}
+    assert U1 is U2 and lat.stats == {
+        "ustar_solves": 1,
+        "ustar_cache_hits": 1,
+        "null_listings_native": 0,
+        "null_listings_python": 0,
+    }
     assert lat.receipt()["meta"]["ustar_cached"] is True
     lat.refresh_Ustar()
     assert lat.stats["ustar_solves"] == 2
