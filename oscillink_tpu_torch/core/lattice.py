@@ -455,6 +455,17 @@ class OscillinkLattice:
 
         self._settle_callbacks: list[Callable] = []
         self._logger: Optional[Callable[[str, dict], None]] = None
+        # the cluster tier's builds add their outcome to the ivf_* counters
+        self.stats: dict[str, int] = {
+            "ustar_solves": 0,
+            "ustar_cache_hits": 0,
+            "null_listings_native": 0,
+            "null_listings_python": 0,
+            "ivf_builds": 0,
+            "ivf_fallbacks": 0,
+            "ivf_overflow_rows": 0,
+            "ivf_patched_rows": 0,
+        }
 
         t0 = time.perf_counter()
         if _defer_graph:
@@ -467,7 +478,8 @@ class OscillinkLattice:
             self._similarity_info = {"mode": "imported"}
             self._similarity = "imported"
         else:
-            self._build_graph_device(graph)
+            with span("lattice.graph"):
+                self._build_graph_device(graph)
         self._graph_build_ms = 1000.0 * (time.perf_counter() - t0)
 
         self.B_diag = np.ones(self.N, dtype=np.float32)
@@ -491,12 +503,6 @@ class OscillinkLattice:
         self._Ustar_cache_dev: Optional[torch.Tensor] = None
         self._Ustar_cache_host: Optional[np.ndarray] = None
         self._Ustar_sig: Optional[str] = None
-        self.stats: dict[str, int] = {
-            "ustar_solves": 0,
-            "ustar_cache_hits": 0,
-            "null_listings_native": 0,
-            "null_listings_python": 0,
-        }
         self._receipt_secret: Optional[bytes] = None
         self._receipt_secret_kid: Optional[str] = None
         self._signature_mode: str = "minimal"
@@ -565,6 +571,7 @@ class OscillinkLattice:
                 fallback_builder=lambda mode: build_graph(
                     self._Y_dev, self._kneighbors, row_cap=self._row_cap_val, similarity=mode
                 ),
+                stats=self.stats,
             )
         else:
             g = build_graph(
@@ -1626,7 +1633,8 @@ class OscillinkLattice:
         if neighbor_seed is not None:
             self._neighbor_seed = neighbor_seed
         t0 = time.perf_counter()
-        self._build_graph_device()
+        with span("lattice.graph"):
+            self._build_graph_device()
         self._graph_build_ms = 1000.0 * (time.perf_counter() - t0)
         self._invalidate_cache()
         self._log(

@@ -11,13 +11,35 @@
      m_probe nearest clusters, an exact f32 [P, m*P] product; ``G``
      clusters go through one ``bmm`` (`_scan_group_size`),
   4. the per-cluster top-k scattered back into row order, and an exact
-     patch scan for rows that overflowed their bucket,
+     patch scan for rows that overflowed their bucket and (``spill_patch``)
+     for the rows the rounds moved, each then offered to its neighbours'
+     lists,
   5. `graph_from_topk` (mutual mask, row cap, Laplacian factors).
 
 `build_graph_ivf` falls back to the dense fast scan when N is small, when
 the sampled clusterability pre-gate or the sampled quality gate rejects
 the corpus, or when any row overflowed; its ``info`` dict names the mode
 that ran, key for key as the JAX package's.
+
+The port's defaults are not the JAX package's: 10 balance rounds over 16
+candidate centroids (the JAX package's 3 over 4) and the spill patch on (it
+has none).  On an NVIDIA H100 at 522,931 x 768 over 1024 clusters (the
+``beir_quora`` cell's loose corpus, PERF.md) 3 rounds over 4 left 1-14 rows
+over their bucket on 10 of 15 seeds, each a fallback to the dense scan, and
+10 over 16 none on 20; the rows the rounds moved (3000-4700) sit in buckets
+of clusters they are not near, and without the spill patch 0.3-1.0 % of the
+exact mutual graph's edges were missing, with it at most 0.002 %.  The tests
+that hold the port to the JAX package pass the JAX package's values.
+
+Spans (`utils.profiling`, recorded only inside ``recording()``): ``ivf.pregate``
+(`_clusterability`), ``ivf.kmeans`` (the Lloyd loop, the balance rounds,
+bucketing and the probe sets), ``ivf.scan`` (the per-cluster ``bmm`` groups
+and the patch scan) and ``ivf.quality`` (`_sample_quality`).  Each ends at a
+host read the build makes anyway.  Without ``spill_patch`` the patch chunks
+(none when no row overflowed) come after ``ivf.scan``'s last host read and
+finish under ``ivf.quality``; with it (the default) the offer's reads
+wait for them.  A ``stats`` dict given to `build_graph_ivf` counts the
+build's outcome.
 
 Semantics kept from the JAX package: its ``lax.approx_max_k`` lowers to an
 exact top-k off the TPU, and an exact top-k of ``overscan * k`` followed by
@@ -39,6 +61,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils.profiling import span
 from .graph import (
     Graph,
     build_graph,
@@ -109,8 +132,10 @@ def ivf_topk(
     m_probe: int,
     kmeans_iters: int = 6,
     patch_cap: int = 2048,
-    balance_rounds: int = 3,
-    balance_cands: int = 4,
+    balance_rounds: int = 10,
+    balance_cands: int = 16,
+    spill_patch: bool = True,
+    stats: Optional[dict] = None,
 ):
     """Per-row approximate top-k via clustered probing.
 
@@ -121,9 +146,15 @@ def ivf_topk(
     capacity-constrained spillover: each row keeps its ``balance_cands``
     nearest centroids, and rows past a cluster's capacity (the least
     central first) move to their next candidate for the following round.
-    The JAX package's ``overscan`` sizes a candidate pool whose stable
-    top-k is the exact top-k this function takes directly (see the module
-    docstring), so it has none."""
+    ``spill_patch`` also patches every row the balance rounds moved off
+    its nearest centroid (past ``patch_cap``), and offers each patched row
+    to the lists of the rows it lists (`_offer`), so that the mutual test
+    keeps its edges: a moved row sits among rows it is not near, whose
+    probes do not reach its own neighbours.  The JAX package has no such
+    step.  ``stats``, when given, gains the patched rows in
+    ``ivf_patched_rows``.  The JAX package's ``overscan`` sizes a candidate
+    pool whose stable top-k is the exact top-k this function takes directly
+    (see the module docstring), so it has none."""
     n, d = Y.shape
     dev = Y.device
     C, P = n_clusters, bucket_cap
@@ -133,97 +164,131 @@ def ivf_topk(
             f"m_probe*bucket_cap = {m * P} must be >= k = {k} "
             "(candidate pool smaller than the requested neighbor count)"
         )
-    # Yn with a zero pad row n below it: an empty bucket slot's id -1 maps
-    # to the pad row, as the JAX package's Yn_pad[-1] wraps to it
-    Yn_pad = torch.zeros((n + 1, d), dtype=torch.float32, device=dev)
-    Yn_pad[:n] = normalize_rows(Y.to(torch.float32))
-    Yn = Yn_pad[:n]
-    Yb = Yn.to(torch.bfloat16)
+    with span("ivf.kmeans"):
+        # Yn with a zero pad row n below it: an empty bucket slot's id -1 maps
+        # to the pad row, as the JAX package's Yn_pad[-1] wraps to it
+        Yn_pad = torch.zeros((n + 1, d), dtype=torch.float32, device=dev)
+        Yn_pad[:n] = normalize_rows(Y.to(torch.float32))
+        Yn = Yn_pad[:n]
+        Yb = Yn.to(torch.bfloat16)
 
-    # ---- k-means (Lloyd) on the unit sphere --------------------------------
-    stride = max(n // C, 1)
-    cent = normalize_rows(Yn[::stride][:C])
-    for _ in range(kmeans_iters):
-        A = scan_bf16(Yb, cent.to(torch.bfloat16))  # [N, C]
-        cent = _lloyd_update(A, Yn, cent, C, d)
-    A = scan_bf16(Yb, cent.to(torch.bfloat16))
-    if balance_rounds > 0 and C >= 2:
-        R = max(2, min(balance_cands, C))
-        cvals, cidx = stable_topk(A, R)  # [N, R]
-        del A
-        ptr = torch.zeros((n, 1), dtype=torch.int64, device=dev)
-        for _ in range(balance_rounds):
-            cur = torch.gather(cidx, 1, ptr)[:, 0]
-            sim = torch.gather(cvals, 1, ptr)[:, 0]
-            order_r, _, pos_r = _rank_in_cluster(cur, sim, C, n)
-            over = torch.zeros(n, dtype=torch.bool, device=dev)
-            over[order_r] = pos_r >= P
-            ptr = torch.where(over[:, None] & (ptr < R - 1), ptr + 1, ptr)
-        assign = torch.gather(cidx, 1, ptr)[:, 0]
-        a_sim = torch.gather(cvals, 1, ptr)[:, 0]
-        del cvals, cidx
-    else:
-        a_sim, assign = torch.max(A, dim=1)  # first maximum on ties
-        del A
+        # ---- k-means (Lloyd) on the unit sphere --------------------------------
+        stride = max(n // C, 1)
+        cent = normalize_rows(Yn[::stride][:C])
+        for _ in range(kmeans_iters):
+            A = scan_bf16(Yb, cent.to(torch.bfloat16))  # [N, C]
+            cent = _lloyd_update(A, Yn, cent, C, d)
+        A = scan_bf16(Yb, cent.to(torch.bfloat16))
+        if balance_rounds > 0 and C >= 2:
+            R = max(2, min(balance_cands, C))
+            cvals, cidx = stable_topk(A, R)  # [N, R]
+            del A
+            ptr = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+            for _ in range(balance_rounds):
+                cur = torch.gather(cidx, 1, ptr)[:, 0]
+                sim = torch.gather(cvals, 1, ptr)[:, 0]
+                order_r, _, pos_r = _rank_in_cluster(cur, sim, C, n)
+                over = torch.zeros(n, dtype=torch.bool, device=dev)
+                over[order_r] = pos_r >= P
+                ptr = torch.where(over[:, None] & (ptr < R - 1), ptr + 1, ptr)
+            assign = torch.gather(cidx, 1, ptr)[:, 0]
+            a_sim = torch.gather(cvals, 1, ptr)[:, 0]
+            moved = ptr[:, 0] > 0
+            del cvals, cidx
+        else:
+            a_sim, assign = torch.max(A, dim=1)  # first maximum on ties
+            moved = torch.zeros(n, dtype=torch.bool, device=dev)
+            del A
 
-    # ---- bucketize: padded [C, P] membership table -------------------------
-    order, a_sorted, pos = _rank_in_cluster(assign, a_sim, C, n)
-    in_cap = pos < P
-    overflow = int((~in_cap).sum())
-    # row C is the pad row that overflow rows write to; it is sliced away
-    bucket = torch.full((C + 1, P), -1, dtype=torch.int64, device=dev)
-    row_t = torch.where(in_cap, a_sorted, C)
-    bucket[row_t, torch.clamp_max(pos, P - 1)] = order
-    bucket = bucket[:C]
-    filled = torch.zeros(n, dtype=torch.bool, device=dev)
-    filled[order] = in_cap
+        # ---- bucketize: padded [C, P] membership table -------------------------
+        order, a_sorted, pos = _rank_in_cluster(assign, a_sim, C, n)
+        in_cap = pos < P
+        # row C is the pad row that overflow rows write to; it is sliced away
+        bucket = torch.full((C + 1, P), -1, dtype=torch.int64, device=dev)
+        row_t = torch.where(in_cap, a_sorted, C)
+        bucket[row_t, torch.clamp_max(pos, P - 1)] = order
+        bucket = bucket[:C]
+        filled = torch.zeros(n, dtype=torch.bool, device=dev)
+        filled[order] = in_cap
 
-    # ---- probe sets: each cluster scans its m nearest clusters -------------
-    probe = stable_topk(cent @ cent.T, m)[1]  # [C, m], self is its own argmax
+        # ---- probe sets: each cluster scans its m nearest clusters -------------
+        probe = stable_topk(cent @ cent.T, m)[1]  # [C, m], self is its own argmax
+        overflow = int((~in_cap).sum())  # a host read: the span ends with the work above
 
-    # ---- per-cluster scan, G clusters a bmm ---------------------------------
-    # exact f32 (TF32 is off on the card)
-    vals = torch.zeros((n, k), dtype=torch.float32, device=dev)
-    idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
-    G = _scan_group_size(C, P, m * P)
-    for c0 in range(0, C, G):
-        c1 = min(c0 + G, C)
-        q_ids = bucket[c0:c1]  # [g, P]
-        cand_ids = bucket[probe[c0:c1]].reshape(c1 - c0, m * P)  # [g, mP]
-        q = Yn_pad[torch.where(q_ids < 0, n, q_ids)]
-        cand = Yn_pad[torch.where(cand_ids < 0, n, cand_ids)]
-        S = torch.bmm(q, cand.transpose(1, 2))  # [g, P, mP]
-        del q, cand
-        invalid = (cand_ids[:, None, :] < 0) | (cand_ids[:, None, :] == q_ids[:, :, None])
-        S.masked_fill_(invalid, -torch.inf)
-        del invalid
-        # only occupied slots' rows are kept (the JAX package scatters the
-        # empty slots' rows to its dropped row n)
-        live = (q_ids >= 0).reshape(-1).nonzero()[:, 0]
-        v, slot = stable_topk(S.reshape(-1, m * P)[live], k)
-        del S
-        grp = live // P
-        sel = cand_ids[grp[:, None], slot]
-        rows = q_ids.reshape(-1)[live]
-        vals[rows] = v
-        idx[rows] = torch.clamp_min(sel, 0)
-    vals = torch.where(torch.isfinite(vals), vals, 0.0)
+    with span("ivf.scan"):
+        # ---- per-cluster scan, G clusters a bmm ---------------------------------
+        # exact f32 (TF32 is off on the card)
+        vals = torch.zeros((n, k), dtype=torch.float32, device=dev)
+        idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
+        G = _scan_group_size(C, P, m * P)
+        for c0 in range(0, C, G):
+            c1 = min(c0 + G, C)
+            q_ids = bucket[c0:c1]  # [g, P]
+            cand_ids = bucket[probe[c0:c1]].reshape(c1 - c0, m * P)  # [g, mP]
+            q = Yn_pad[torch.where(q_ids < 0, n, q_ids)]
+            cand = Yn_pad[torch.where(cand_ids < 0, n, cand_ids)]
+            S = torch.bmm(q, cand.transpose(1, 2))  # [g, P, mP]
+            del q, cand
+            invalid = (cand_ids[:, None, :] < 0) | (cand_ids[:, None, :] == q_ids[:, :, None])
+            S.masked_fill_(invalid, -torch.inf)
+            del invalid
+            # only occupied slots' rows are kept (the JAX package scatters the
+            # empty slots' rows to its dropped row n)
+            live = (q_ids >= 0).reshape(-1).nonzero()[:, 0]
+            v, slot = stable_topk(S.reshape(-1, m * P)[live], k)
+            del S
+            grp = live // P
+            sel = cand_ids[grp[:, None], slot]
+            rows = q_ids.reshape(-1)[live]
+            vals[rows] = v
+            idx[rows] = torch.clamp_min(sel, 0)
+        vals = torch.where(torch.isfinite(vals), vals, 0.0)
 
-    # ---- exact patch scan for bucket-overflow rows --------------------------
-    # the first `patch_cap` unfilled row ids, as the JAX package's index-stable
-    # top_k over the unfilled mask picks them; rows past the cap stay unfilled
-    miss = (~filled).nonzero()[:, 0][: min(patch_cap, n)]
-    cols = torch.arange(n, device=dev)
-    for p0 in range(0, miss.numel(), _PATCH_CHUNK):
-        rows = miss[p0:p0 + _PATCH_CHUNK]
-        S = Yn[rows] @ Yn.T
-        S[cols[: rows.numel()], rows] = -torch.inf
-        v, j = stable_topk(S, k)
-        del S
-        vals[rows] = torch.where(torch.isfinite(v), v, 0.0)
-        idx[rows] = j
+        # ---- exact patch scan for bucket-overflow rows --------------------------
+        # the first `patch_cap` unfilled row ids, as the JAX package's index-stable
+        # top_k over the unfilled mask picks them; rows past the cap stay unfilled
+        miss = (~filled).nonzero()[:, 0][: min(patch_cap, n)]
+        patch = torch.cat([miss, (moved & filled).nonzero()[:, 0]]) if spill_patch else miss
+        cols = torch.arange(n, device=dev)
+        for p0 in range(0, patch.numel(), _PATCH_CHUNK):
+            rows = patch[p0:p0 + _PATCH_CHUNK]
+            S = Yn[rows] @ Yn.T
+            S[cols[: rows.numel()], rows] = -torch.inf
+            v, j = stable_topk(S, k)
+            del S
+            vals[rows] = torch.where(torch.isfinite(v), v, 0.0)
+            idx[rows] = j
+        if spill_patch and patch.numel():
+            _offer(vals, idx, patch, k)
+    if stats is not None:
+        stats["ivf_patched_rows"] = stats.get("ivf_patched_rows", 0) + patch.numel()
     filled[miss] = True
     return vals, idx.to(torch.int32), overflow, filled
+
+
+def _offer(vals: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, k: int) -> None:
+    """Offer each of ``rows`` to the lists of the rows it lists, in place:
+    row j's list becomes the top k, by (similarity desc, id asc), of its own
+    entries and of the offered rows that list j, each id once."""
+    n = vals.shape[0]
+    tgt = idx[rows].reshape(-1)
+    J = torch.unique(tgt)  # sorted
+    r = torch.cat([J.repeat_interleave(k), tgt])
+    c = torch.cat([idx[J].reshape(-1), rows.repeat_interleave(k)])
+    v = torch.cat([vals[J].reshape(-1), vals[rows].reshape(-1)])
+    o = torch.argsort(r * n + c, stable=True)  # a row's own entry first among repeats
+    r, c, v = r[o], c[o], v[o]
+    once = torch.ones_like(r, dtype=torch.bool)
+    once[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
+    r, c, v = r[once], c[once], v[once]
+    o = torch.argsort(-v, stable=True)  # ids ascending within ties, then rows
+    o = o[torch.argsort(r[o], stable=True)]
+    r, c, v = r[o], c[o], v[o]
+    rank = torch.arange(r.numel(), device=r.device) - torch.searchsorted(r, J)[
+        torch.searchsorted(J, r)]
+    keep = rank < k
+    vals[r[keep], rank[keep]] = v[keep]
+    idx[r[keep], rank[keep]] = c[keep]
 
 
 def _kmeans_maxsim(Ys: torch.Tensor, C: int, iters: int, d: int) -> torch.Tensor:
@@ -295,10 +360,12 @@ def build_graph_ivf(
     min_recall: float = 0.9,
     max_sim_gap: float = 0.01,
     patch_cap: int = 2048,
-    balance_rounds: int = 3,
-    balance_cands: int = 4,
+    balance_rounds: int = 10,
+    balance_cands: int = 16,
     min_clusterability: float = 1.25,
     fallback_builder: Optional[Callable[[str], Graph]] = None,
+    spill_patch: bool = True,
+    stats: Optional[dict] = None,
 ) -> tuple[Graph, dict]:
     """Clustered approximate graph build with dense-fast-scan fallback.
 
@@ -311,11 +378,21 @@ def build_graph_ivf(
     ``max_sim_gap``).  The fallback re-resolves ``"auto"`` without the
     cluster tier, and ``fallback_builder(mode)`` builds it when given.
     ``overscan`` is recorded in ``info`` as the JAX package records it; the
-    port's exact top-k needs no candidate pool."""
+    port's exact top-k needs no candidate pool.  ``spill_patch`` is
+    `ivf_topk`'s.  ``stats``, when given,
+    gains this build's outcome: ``ivf_builds`` or ``ivf_fallbacks`` one,
+    ``ivf_overflow_rows`` the rows that overflowed their bucket and
+    ``ivf_patched_rows`` those the patch scan filled (`ivf_topk`)."""
     n, d = Y.shape
     fb_mode = resolve_similarity(n, "auto")
 
-    def _fallback(reason, **extra):
+    def _count(outcome: str, ovf: int = 0) -> None:
+        if stats is not None:
+            for key, val in ((outcome, 1), ("ivf_overflow_rows", ovf)):
+                stats[key] = stats.get(key, 0) + val
+
+    def _fallback(reason, ovf=0, **extra):
+        _count("ivf_fallbacks", ovf)
         if fallback_builder is not None:
             g = fallback_builder(fb_mode)
         else:
@@ -327,7 +404,8 @@ def build_graph_ivf(
 
     obs = null = clus = None
     if min_clusterability > 0:
-        obs, null = (float(v) for v in torch.stack(_clusterability(Y)).tolist())
+        with span("ivf.pregate"):
+            obs, null = (float(v) for v in torch.stack(_clusterability(Y)).tolist())
         clus = obs / max(null, 1e-6)
         if clus < min_clusterability:
             return _fallback(
@@ -344,8 +422,10 @@ def build_graph_ivf(
         Y, k, n_clusters=n_clusters, bucket_cap=P, m_probe=m_probe,
         kmeans_iters=kmeans_iters, patch_cap=patch_cap,
         balance_rounds=balance_rounds, balance_cands=balance_cands,
+        spill_patch=spill_patch, stats=stats,
     )
-    rec, gap = (float(v) for v in torch.stack(_sample_quality(Y, vals, idx, k)).tolist())
+    with span("ivf.quality"):
+        rec, gap = (float(v) for v in torch.stack(_sample_quality(Y, vals, idx, k)).tolist())
     if ovf > 0 or (rec < min_recall and gap > max_sim_gap):
         reason = (
             f"{ovf} bucket-overflow rows would be isolated by the mutual "
@@ -354,7 +434,8 @@ def build_graph_ivf(
             else f"sampled recall {rec:.3f} < {min_recall} and sim-gap p99 "
             f"{gap:.4f} > {max_sim_gap}"
         )
-        return _fallback(reason, recall_estimate=rec, sim_gap_p99=gap)
+        return _fallback(reason, ovf, recall_estimate=rec, sim_gap_p99=gap)
+    _count("ivf_builds")
     g = graph_from_topk(vals, idx, row_cap=row_cap)
     return g, {
         "mode": "ivf",

@@ -40,11 +40,13 @@ __all__ = ["trace", "time_fn", "device_memory_stats", "span", "recording", "Span
 
 # The program's span names, by layer.  `lattice.ustar` and `lattice.settle`
 # cover the intervals of ``last_ustar["solve_ms"]`` and ``last["t_ms"]``;
-# `cg.wait` is each CG iteration's one host read of its residual.
+# `cg.wait` is each CG iteration's one host read of its residual;
+# `lattice.graph` is a lattice's graph build, the IVF stages under it.
 SPANS = (
     "lattice.set_query", "lattice.signature", "lattice.ustar", "lattice.settle",
     "lattice.receipt", "receipt.energy", "receipt.nulls",
     "lattice.bundle", "bundle.scores", "bundle.mmr",
+    "lattice.graph", "ivf.pregate", "ivf.kmeans", "ivf.scan", "ivf.quality",
     "cg.wait",
     "service.request", "service.decode", "service.validate", "service.arrays",
     "service.build", "service.settle", "service.bundle",

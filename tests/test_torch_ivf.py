@@ -32,6 +32,9 @@ from oscillink_tpu.ops import ivf as jivf  # noqa: E402
 from oscillink_tpu_torch.ops import ivf as tivf  # noqa: E402
 
 NULL_REL = 1e-2
+# the JAX package's balance defaults and no spill patch: the port's
+# defaults differ (ops/ivf.py), so its side of each comparison passes these
+JAX_BALANCE = dict(balance_rounds=3, balance_cands=4, spill_patch=False)
 
 
 def _clustered(n_clusters=32, per=256, d=64, seed=0, spread=0.5):
@@ -89,7 +92,7 @@ def test_ivf_topk_matches_jax(case):
     make, k, kw = IVF_CASES[case]
     Y = make()
     vj, ij, oj, fj = jivf.ivf_topk(jnp.asarray(Y), k, **kw)
-    vt, it, ot_, ft = tivf.ivf_topk(torch.from_numpy(Y), k, **kw)
+    vt, it, ot_, ft = tivf.ivf_topk(torch.from_numpy(Y), k, **{**JAX_BALANCE, **kw})
     assert it.dtype == torch.int32 and it.shape == (Y.shape[0], k)
     assert ot_ == int(oj)  # overflow
     np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))  # filled
@@ -102,7 +105,8 @@ def test_ivf_topk_matches_jax(case):
     if case == "patch_cap_binds":
         assert int((~ft).sum()) == ot_ - 100  # rows past the cap stay unfilled
     if case == "balanced":
-        assert ot_ <= tivf.ivf_topk(torch.from_numpy(Y), k, **{**kw, "balance_rounds": 0})[2] // 4
+        unbalanced = {**JAX_BALANCE, **kw, "balance_rounds": 0}
+        assert ot_ <= tivf.ivf_topk(torch.from_numpy(Y), k, **unbalanced)[2] // 4
 
 
 def test_ivf_topk_rejects_a_pool_smaller_than_k():
@@ -205,7 +209,7 @@ def test_build_graph_ivf_fallbacks_match_jax(case):
     Y = make()
     k = 6 if case == "small_n_exact" else 8
     gj, ij = jivf.build_graph_ivf(jnp.asarray(Y), k, **kw)
-    gt, it = tivf.build_graph_ivf(torch.from_numpy(Y), k, **kw)
+    gt, it = tivf.build_graph_ivf(torch.from_numpy(Y), k, **JAX_BALANCE, **kw)
     assert it["mode"] == ij["mode"] == "fallback-exact"
     assert set(it) == set(ij)
     assert word in it["reason"]
@@ -234,7 +238,7 @@ def test_build_graph_ivf_accepts_and_matches_jax():
     Y = _clustered()
     kw = dict(n_clusters=32, m_probe=4, min_n=1000)
     gj, ij = jivf.build_graph_ivf(jnp.asarray(Y), 8, **kw)
-    gt, it = tivf.build_graph_ivf(torch.from_numpy(Y), 8, **kw)
+    gt, it = tivf.build_graph_ivf(torch.from_numpy(Y), 8, **JAX_BALANCE, **kw)
     assert it["mode"] == ij["mode"] == "ivf"
     assert list(it) == list(ij)
     for key, val in ij.items():

@@ -184,6 +184,10 @@ def test_ustar_cache_stats_logger_and_callbacks():
         "ustar_cache_hits": 1,
         "null_listings_native": 0,
         "null_listings_python": 0,
+        "ivf_builds": 0,
+        "ivf_fallbacks": 0,
+        "ivf_overflow_rows": 0,
+        "ivf_patched_rows": 0,
     }
     assert lat.receipt()["meta"]["ustar_cached"] is True
     lat.refresh_Ustar()

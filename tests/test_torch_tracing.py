@@ -24,6 +24,7 @@ from oscillink_tpu_torch.utils.profiling import SPAN_CAPACITY, SPANS, recording,
 LATTICE_SPANS = {"lattice.set_query", "lattice.signature", "lattice.ustar", "lattice.settle",
                  "lattice.receipt", "receipt.energy", "receipt.nulls", "lattice.bundle",
                  "bundle.scores", "bundle.mmr", "cg.wait"}
+GRAPH_SPANS = {"lattice.graph", "ivf.pregate", "ivf.kmeans", "ivf.scan", "ivf.quality"}
 SERVICE_SPANS = {"service.request", "service.decode", "service.validate", "service.arrays",
                  "service.build", "service.settle", "service.bundle"}
 
@@ -51,7 +52,7 @@ def _by_name(spans):
 
 
 def test_span_names_are_the_tables():
-    assert set(SPANS) == LATTICE_SPANS | SERVICE_SPANS
+    assert set(SPANS) == LATTICE_SPANS | GRAPH_SPANS | SERVICE_SPANS
     assert len(SPANS) == len(set(SPANS))
 
 
@@ -186,6 +187,14 @@ def test_the_lattice_spans_and_their_parents():
     (u,) = by["lattice.ustar"]
     assert u.ms >= lat.last_ustar["solve_ms"]
     assert rec_out["meta"]["ustar_cached"] is False and bundle
+
+
+def test_every_graph_build_is_one_lattice_graph_span():
+    Y = np.random.default_rng(1).standard_normal((96, 16)).astype(np.float32)
+    with recording() as rec:
+        lat = OscillinkLattice(Y, kneighbors=5, device="cpu")
+        lat.rebuild_graph(kneighbors=4)
+    assert [(s.name, s.parent) for s in rec.spans] == [("lattice.graph", None)] * 2
 
 
 def test_signature_only_on_a_memo_miss_and_ustar_only_on_a_cache_miss():
