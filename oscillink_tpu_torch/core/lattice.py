@@ -356,6 +356,46 @@ def compute_graph_token(y_hash: str, k: int, row_cap: float, deterministic: bool
     ).hexdigest()
 
 
+def state_sig_prefix(B: np.ndarray) -> "hashlib._Hash":
+    """sha256 fed the gates' part of the state signature's text.  The text
+    is ``json.dumps(..., sort_keys=True)`` of a dict whose only uppercase
+    key, ``"B"``, sorts first, so it opens with ``{"B": <gates>, ``; the
+    rest depends only on the query and the scalars."""
+    h = hashlib.sha256(b'{"B": ')
+    h.update(json.dumps(np.round(B, 6).tolist()).encode("utf-8"))
+    h.update(b", ")
+    return h
+
+
+def finish_state_sig(
+    prefix: "hashlib._Hash",
+    psi: np.ndarray,
+    lams: list[float],
+    chain_present: bool,
+    chain_len: int,
+    k: int,
+    detk: bool,
+    adj_token: str,
+) -> str:
+    """The state signature from a copy of ``state_sig_prefix(B)``: the
+    same bytes' digest as hashing the whole text at once."""
+    tail = json.dumps(
+        {
+            "psi": np.round(psi, 6).tolist(),
+            "lam": lams,
+            "chain_present": chain_present,
+            "chain_len": chain_len,
+            "k": k,
+            "detk": detk,
+            "adj": adj_token,
+        },
+        sort_keys=True,
+    )
+    h = prefix.copy()
+    h.update(tail[1:].encode("utf-8"))  # the tail's own "{" is the prefix's
+    return h.hexdigest()
+
+
 def compute_state_sig(
     psi: np.ndarray,
     B: np.ndarray,
@@ -367,19 +407,11 @@ def compute_state_sig(
     adj_token: str,
 ) -> str:
     """State signature over rounded query/gates, energy params, chain
-    metadata, and the adjacency token (reference lattice.py:729-744)."""
-    data = {
-        "psi": np.round(psi, 6).tolist(),
-        "B": np.round(B, 6).tolist(),
-        "lam": lams,
-        "chain_present": chain_present,
-        "chain_len": chain_len,
-        "k": k,
-        "detk": detk,
-        "adj": adj_token,
-    }
-    raw = json.dumps(data, sort_keys=True).encode("utf-8")
-    return hashlib.sha256(raw).hexdigest()
+    metadata, and the adjacency token (reference lattice.py:729-744):
+    sha256 of ``json.dumps`` of them with sorted keys."""
+    return finish_state_sig(
+        state_sig_prefix(B), psi, lams, chain_present, chain_len, k, detk, adj_token
+    )
 
 
 class SolveStats(dict):
@@ -459,6 +491,8 @@ class OscillinkLattice:
         self.stats: dict[str, int] = {
             "ustar_solves": 0,
             "ustar_cache_hits": 0,
+            "sig_prefix_hits": 0,
+            "sig_prefix_builds": 0,
             "null_listings_native": 0,
             "null_listings_python": 0,
             "ivf_builds": 0,
@@ -503,6 +537,9 @@ class OscillinkLattice:
         self._Ustar_cache_dev: Optional[torch.Tensor] = None
         self._Ustar_cache_host: Optional[np.ndarray] = None
         self._Ustar_sig: Optional[str] = None
+        # the state signature's gate prefix and the gates' bits it hashed
+        self._sig_prefix: Optional["hashlib._Hash"] = None
+        self._sig_prefix_key: Optional[tuple] = None
         self._receipt_secret: Optional[bytes] = None
         self._receipt_secret_kid: Optional[str] = None
         self._signature_mode: str = "minimal"
@@ -1909,9 +1946,18 @@ class OscillinkLattice:
         if self._sig_memo is not None:
             return self._sig_memo
         with span("lattice.signature"):
-            self._sig_memo = compute_state_sig(
+            # the gates' prefix is rehashed only when their bits change: on a
+            # standing corpus a query changes psi alone
+            B = np.asarray(self.B_diag)
+            key = (B.dtype.str, B.shape, B.tobytes())
+            if self._sig_prefix_key == key:
+                self.stats["sig_prefix_hits"] += 1
+            else:
+                self._sig_prefix, self._sig_prefix_key = state_sig_prefix(B), key
+                self.stats["sig_prefix_builds"] += 1
+            self._sig_memo = finish_state_sig(
+                self._sig_prefix,
                 self.psi,
-                self.B_diag,
                 [self.lamG, self.lamC, self.lamQ, self.lamP],
                 self._path is not None,
                 len(self._chain_nodes) if self._chain_nodes else 0,

@@ -182,6 +182,8 @@ def test_ustar_cache_stats_logger_and_callbacks():
     assert U1 is U2 and lat.stats == {
         "ustar_solves": 1,
         "ustar_cache_hits": 1,
+        "sig_prefix_hits": 0,
+        "sig_prefix_builds": 1,
         "null_listings_native": 0,
         "null_listings_python": 0,
         "ivf_builds": 0,
