@@ -135,7 +135,7 @@ from ..native.listing import list_null_points, pack_null_rows
 from ..preprocess.diffusion import gates_from_graph, gates_from_graph_batch
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.profiling import span
-from .receipts import sign_payload, verify_receipt
+from .receipts import _null_cap_env, chain_receipt_body, null_summary, receipt_body, verify_receipt
 
 __all__ = ["OscillinkLattice", "json_line_logger", "compute_graph_token", "compute_state_sig",
            "working_set_bytes", "auto_col_chunks"]
@@ -292,13 +292,6 @@ def _env_col_chunks(d: int) -> Optional[int]:
 
 def _env_flag(name: str) -> bool:
     return os.getenv(name, "0").strip().lower() in {"1", "true", "yes"}
-
-
-def _null_cap_env() -> int:
-    try:
-        return int(os.getenv("OSCILLINK_RECEIPT_NULL_CAP", "0").strip())
-    except ValueError:
-        return 0
 
 
 def _fused_windowed_enabled() -> bool:
@@ -1305,20 +1298,11 @@ class OscillinkLattice:
                 top_z, top_i = top_z[0], top_i[0]
                 rows = pack_null_rows(top_i, nj[top_i], top_z, nr[top_i])
                 nulls = self._list_nulls(rows[torch.isfinite(top_z)])
-                return nulls, {
-                    "total_null_points": n_flagged,
-                    "returned_null_points": len(nulls),
-                    "null_cap_applied": n_flagged > len(nulls),
-                }
+                return nulls, null_summary(nulls, n_flagged)
             i = torch.arange(self.N, dtype=torch.int32, device=nflag.device)
-            rows = pack_null_rows(i, nj, nz, nr)
-            nulls = self._list_nulls(rows[nflag])
+            nulls = self._list_nulls(pack_null_rows(i, nj, nz, nr)[nflag])
             # a cap >= N never binds: at most N rows are flagged
-            return nulls, {
-                "total_null_points": len(nulls),
-                "returned_null_points": len(nulls),
-                "null_cap_applied": False,
-            }
+            return nulls, null_summary(nulls)
 
     def _list_nulls(self, rows: torch.Tensor) -> list[dict]:
         """The dicts of packed device rows: one copy to the host, then the
@@ -1328,19 +1312,13 @@ class OscillinkLattice:
         return nulls
 
     def receipt(self) -> dict[str, Any]:
-        from .. import __version__ as pkg_version
-
         with span("lattice.receipt"):
             Ustar = self._solve_ustar_device()
             lam = self._lam()
             if self._receipt_detail == "light":
                 dH_t = deltaH_trace(self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev)
                 nulls: list[dict[str, Any]] = []
-                null_meta = {
-                    "total_null_points": 0,
-                    "returned_null_points": 0,
-                    "null_cap_applied": False,
-                }
+                null_meta = null_summary(nulls)
                 coh_sum = anchor_sum = query_sum = 0.0
             else:
                 with span("receipt.energy"):
@@ -1365,98 +1343,38 @@ class OscillinkLattice:
                     self._graph, self._path, self._U_dev, Ustar, lam, self._B_dev
                 )
                 deltaH_mode = "deterministic-f64-tree"
-            dH = float(dH_t)
-
-            last_ustar = self.last_ustar
-            n_edges = self._n_edges
-            meta: dict[str, Any] = {
-                "ustar_cached": bool(self._last_ustar_from_cache),
-                "ustar_solves": int(self.stats["ustar_solves"]),
-                "ustar_cache_hits": int(self.stats["ustar_cache_hits"]),
-                "ustar_converged": bool(last_ustar["converged"]) if last_ustar else True,
-                "ustar_res": float(last_ustar["res"]) if last_ustar else 0.0,
-                "ustar_iters": int(last_ustar["iters"]) if last_ustar else 0,
-                "ustar_solve_ms": float(last_ustar["solve_ms"]) if last_ustar else 0.0,
-                "graph_build_ms": float(self._graph_build_ms),
-                "last_settle_ms": float(self.last.get("t_ms") or 0.0),
-                "deltaH_mode": deltaH_mode,
-                "avg_degree": float(n_edges / max(self.N, 1)),
-                "edge_density": float(n_edges / max(self.N * (self.N - 1), 1)),
-                "similarity": self._similarity,
-                "similarity_recall_target": float(_SIM_RECALL.get(self._similarity, 1.0)),
+            lu = self.last_ustar or {"converged": True, "res": 0.0, "iters": 0, "solve_ms": 0.0}
+            out = receipt_body(
+                deltaH_total=float(dH_t), sums=(coh_sum, anchor_sum, query_sum),
+                cg_iters=self.last.get("iters") or 0, residual=self.last.get("res") or 0.0,
+                t_ms=self.last.get("t_ms") or 0.0,
+                null_points=nulls, null_points_summary=null_meta,
+                ustar_cached=self._last_ustar_from_cache, ustar_solves=self.stats["ustar_solves"],
+                ustar_cache_hits=self.stats["ustar_cache_hits"],
+                ustar_converged=lu["converged"], ustar_res=lu["res"], ustar_iters=lu["iters"],
+                ustar_solve_ms=lu["solve_ms"], graph_build_ms=self._graph_build_ms,
+                last_settle_ms=self.last.get("t_ms") or 0.0, deltaH_mode=deltaH_mode,
+                n_edges=self._n_edges, similarity=self._similarity,
+                similarity_recall_target=float(_SIM_RECALL.get(self._similarity, 1.0)),
                 # the IVF build's realized mode and quality estimates, or
                 # {"mode": "imported"} for a stored adjacency
-                **(
-                    {"similarity_info": self._similarity_info}
-                    if self._similarity_info is not None
-                    else {}
-                ),
+                similarity_info=self._similarity_info,
                 # the active window precision tier, while a window context is
                 # active: tiers other than bf16x3 change the settle numerics
-                **({"window_precision": _env_precision()} if self._window_ctx is not None else {}),
-                "gates_min": float(np.min(self.B_diag)),
-                "gates_max": float(np.max(self.B_diag)),
-                "gates_mean": float(np.mean(self.B_diag)),
-                "gates_uniform": bool(np.allclose(self.B_diag, self.B_diag[0])),
-                "state_sig": self._signature(),
-                "receipt_detail": self._receipt_detail,
-                "null_points_summary": null_meta,
-            }
-
-            if self._receipt_secret is not None:
-                if self._signature_mode == "extended":
-                    payload: dict[str, Any] = {
-                        "sig_v": 1,
-                        "mode": "extended",
-                        "state_sig": self._signature(),
-                        "deltaH_total": dH,
-                        "ustar_iters": meta["ustar_iters"],
-                        "ustar_res": meta["ustar_res"],
-                        "ustar_converged": meta["ustar_converged"],
-                        "params": {
-                            "lamG": self.lamG,
-                            "lamC": self.lamC,
-                            "lamQ": self.lamQ,
-                            "lamP": self.lamP,
-                        },
-                        "graph": {
-                            "k": self._kneighbors,
-                            "deterministic_k": self._deterministic_k,
-                            "neighbor_seed": self._neighbor_seed,
-                        },
-                    }
-                else:
-                    payload = {
-                        "sig_v": 1,
-                        "mode": "minimal",
-                        "state_sig": self._signature(),
-                        "deltaH_total": dH,
-                    }
-                meta["signature"] = {
-                    "algorithm": "HMAC-SHA256",
-                    "payload": payload,
-                    "signature": sign_payload(payload, self._receipt_secret),
-                }
-                if self._receipt_secret_kid is not None:
-                    meta["signature"]["kid"] = self._receipt_secret_kid
-
-            out: dict[str, Any] = {
-                "version": str(pkg_version),
-                "deltaH_total": dH,
-                "coh_drop_sum": float(coh_sum),
-                "anchor_pen_sum": float(anchor_sum),
-                "query_term_sum": float(query_sum),
-                "cg_iters": int(self.last.get("iters") or 0),
-                "residual": float(self.last.get("res") or 0.0),
-                "t_ms": float(self.last.get("t_ms") or 0.0),
-                "null_points": nulls,
-                "meta": meta,
-            }
-            if _env_flag("OSCILLINK_RECEIPT_DYNAMICS") and self._last_dynamics is not None:
-                meta["dynamics"] = self._last_dynamics
+                window_precision=_env_precision() if self._window_ctx is not None else None,
+                gates=self.B_diag, state_sig=self._signature(), receipt_detail=self._receipt_detail,
+                secret=self._receipt_secret, kid=self._receipt_secret_kid,
+                extended=None if self._signature_mode != "extended" else {
+                    "params": {"lamG": self.lamG, "lamC": self.lamC, "lamQ": self.lamQ,
+                               "lamP": self.lamP},
+                    "graph": {"k": self._kneighbors, "deterministic_k": self._deterministic_k,
+                              "neighbor_seed": self._neighbor_seed},
+                },
+                dynamics=self._last_dynamics if _env_flag("OSCILLINK_RECEIPT_DYNAMICS") else None,
+            )
             self._log(
                 "receipt",
-                {"deltaH_total": out["deltaH_total"], "ustar_cached": meta["ustar_cached"]},
+                {"deltaH_total": out["deltaH_total"], "ustar_cached": out["meta"]["ustar_cached"]},
             )
             return out
 
@@ -1478,37 +1396,7 @@ class OscillinkLattice:
         cj = torch.tensor(chain[1:], dtype=torch.int64, device=self.device)
         outs = chain_edge_stats(self._graph, pg, Ustar, self._Y_dev, self._lam().lamC, ci, cj)
         z_s, z_p, r_s, r_p, gains = (t.cpu().numpy() for t in outs)
-        gain = float(np.sum(gains))
-
-        edges: list[dict[str, Any]] = []
-        worst = (-1, -1.0, (-1, -1))
-        for a in range(len(chain) - 1):
-            i, j = int(chain[a]), int(chain[a + 1])
-            edges.append(
-                {
-                    "k": int(a),
-                    "edge": [i, j],
-                    "z_struct": float(z_s[a]),
-                    "z_path": float(z_p[a]),
-                    "r_struct": float(r_s[a]),
-                    "r_path": float(r_p[a]),
-                }
-            )
-            zmax = max(float(z_s[a]), float(z_p[a]))
-            if zmax > worst[1]:
-                worst = (a, zmax, (i, j))
-
-        verdict = all(max(float(e["z_struct"]), float(e["z_path"])) <= float(z_th) for e in edges)
-        return {
-            "verdict": bool(verdict),
-            "weakest_link": {
-                "k": int(worst[0]),
-                "edge": [int(worst[2][0]), int(worst[2][1])],
-                "zscore": float(worst[1]),
-            },
-            "coherence_gain": gain,
-            "edges": edges,
-        }
+        return chain_receipt_body(chain, z_s, z_p, r_s, r_p, np.sum(gains), z_th)
 
     def bundle(self, k: int = 8, alpha: float = 0.5, *, diversify: bool = True) -> list[dict]:
         """Top-k bundle scored by alpha * z(coherence_drop) + (1 - alpha) *

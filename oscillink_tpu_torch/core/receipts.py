@@ -1,9 +1,14 @@
-"""Receipt signing / verification (host-side, hardware independent).
+"""The receipt's wire format, signing and verification (host-side,
+hardware independent).
 
 The port's own copy of ``oscillink_tpu/core/receipts.py`` (that package
 imports JAX on import, so the port cannot reuse it).  HMAC-SHA256 over
 canonical (sorted-keys) JSON payloads, constant-time compare.  It must stay
 wire-compatible: a receipt signed by either package verifies in the other.
+
+It also assembles the receipts that the lattice, the service's native route
+and its mesh route return (`receipt_body`, `chain_receipt_body`): one key
+order for every route, which is the JAX package's.
 """
 
 from __future__ import annotations
@@ -11,7 +16,10 @@ from __future__ import annotations
 import hashlib
 import hmac
 import json
-from typing import Any, Optional
+import os
+from typing import Any, Optional, Sequence
+
+import numpy as np
 
 __all__ = [
     "canonical_json",
@@ -20,6 +28,9 @@ __all__ = [
     "verify_receipt_mode",
     "sign_component",
     "verify_component",
+    "null_summary",
+    "receipt_body",
+    "chain_receipt_body",
 ]
 
 
@@ -162,3 +173,145 @@ def verify_component(receipt: dict, secret: bytes | str) -> bool:
         return all(receipt.get(k) == v for k, v in payload.items())
     except Exception:
         return False
+
+
+def _null_cap_env() -> int:
+    """``OSCILLINK_RECEIPT_NULL_CAP``: the most null points a receipt lists
+    (0, unset or garbage: no cap).  Each route that caps applies it its own
+    way."""
+    try:
+        return int(os.getenv("OSCILLINK_RECEIPT_NULL_CAP", "0").strip())
+    except ValueError:
+        return 0
+
+
+def null_summary(null_points: list, total: Optional[int] = None) -> dict[str, Any]:
+    """``meta.null_points_summary`` for ``null_points`` listed out of
+    ``total`` flagged rows (None: every flagged row is listed)."""
+    total = len(null_points) if total is None else int(total)
+    return {
+        "total_null_points": total,
+        "returned_null_points": len(null_points),
+        "null_cap_applied": total > len(null_points),
+    }
+
+
+def receipt_body(
+    *, deltaH_total: float, sums: Sequence[float], cg_iters: int, residual: float, t_ms: float,
+    null_points: list, ustar_converged: bool, ustar_res: float, ustar_iters: int,
+    last_settle_ms: float, n_edges: int, gates: np.ndarray, state_sig: str,
+    secret: Optional[bytes | str] = None, ustar_cached: bool = False, ustar_solves: int = 1,
+    ustar_cache_hits: int = 0, ustar_solve_ms: float = 0.0, graph_build_ms: float = 0.0,
+    receipt_detail: str = "full", null_points_summary: Optional[dict] = None,
+    deltaH_mode: Optional[str] = None, similarity: Optional[str] = None,
+    similarity_recall_target: Optional[float] = None, similarity_info: Optional[dict] = None,
+    window_precision: Optional[str] = None, backend: Optional[str] = None,
+    mesh_devices: Optional[int] = None, kid: Optional[str] = None,
+    extended: Optional[dict] = None, dynamics: Optional[dict] = None,
+) -> dict[str, Any]:
+    """The receipt of a settled lattice: ΔH, the three energy sums
+    (coherence drop, anchor penalty, query term), the settle's iterations,
+    residual and time, the null points, and ``meta``.
+
+    N is the length of ``gates`` (the host gate vector); ``avg_degree`` and
+    ``edge_density`` come from ``n_edges`` and N.  The keys of ``meta``
+    whose argument is None are left out.  ``null_points_summary`` defaults
+    to every flagged row listed (`null_summary`).  With a ``secret``,
+    ``meta.signature`` signs the minimal payload {sig_v, mode, state_sig,
+    deltaH_total}, or with ``extended`` (the lattice's params and graph)
+    the extended payload, which adds U*'s iterations, residual and
+    convergence; ``kid`` stamps the block with its key id."""
+    from .. import __version__
+
+    n = len(gates)
+    meta: dict[str, Any] = {
+        "ustar_cached": bool(ustar_cached),
+        "ustar_solves": int(ustar_solves),
+        "ustar_cache_hits": int(ustar_cache_hits),
+        "ustar_converged": bool(ustar_converged),
+        "ustar_res": float(ustar_res),
+        "ustar_iters": int(ustar_iters),
+        "ustar_solve_ms": float(ustar_solve_ms),
+        "graph_build_ms": float(graph_build_ms),
+        "last_settle_ms": float(last_settle_ms),
+        "deltaH_mode": deltaH_mode,
+        "avg_degree": float(n_edges / max(n, 1)),
+        "edge_density": float(n_edges / max(n * (n - 1), 1)),
+        "similarity": similarity,
+        "similarity_recall_target": similarity_recall_target,
+        "similarity_info": similarity_info,
+        "window_precision": window_precision,
+        "gates_min": float(np.min(gates)),
+        "gates_max": float(np.max(gates)),
+        "gates_mean": float(np.mean(gates)),
+        "gates_uniform": bool(np.allclose(gates, gates[0])),
+        "state_sig": state_sig,
+        "receipt_detail": receipt_detail,
+        "backend": backend,
+        "mesh_devices": mesh_devices,
+        "null_points_summary": null_points_summary or null_summary(null_points),
+    }
+    meta = {k: v for k, v in meta.items() if v is not None}
+    if secret is not None:
+        payload = {
+            "sig_v": 1,
+            "mode": "minimal" if extended is None else "extended",
+            "state_sig": state_sig,
+            "deltaH_total": float(deltaH_total),
+        }
+        if extended is not None:
+            payload.update(
+                ustar_iters=meta["ustar_iters"],
+                ustar_res=meta["ustar_res"],
+                ustar_converged=meta["ustar_converged"],
+                **extended,
+            )
+        meta["signature"] = sign_component(payload, secret)
+        if kid is not None:
+            meta["signature"]["kid"] = kid
+    if dynamics is not None:
+        meta["dynamics"] = dynamics
+    coh_sum, anchor_sum, query_sum = sums
+    return {
+        "version": str(__version__),
+        "deltaH_total": float(deltaH_total),
+        "coh_drop_sum": float(coh_sum),
+        "anchor_pen_sum": float(anchor_sum),
+        "query_term_sum": float(query_sum),
+        "cg_iters": int(cg_iters),
+        "residual": float(residual),
+        "t_ms": float(t_ms),
+        "null_points": null_points,
+        "meta": meta,
+    }
+
+
+def chain_receipt_body(
+    chain: Sequence[int],
+    z_struct: Sequence[float],
+    z_path: Sequence[float],
+    r_struct: Sequence[float],
+    r_path: Sequence[float],
+    gain: float,
+    z_th: float,
+) -> dict[str, Any]:
+    """The chain receipt from the per-edge z-scores and residuals of
+    ``chain``'s consecutive edges: each edge, the weakest link (the first
+    edge of largest max(z_struct, z_path)), the verdict that no edge's
+    larger z-score exceeds ``z_th``, and the coherence gain."""
+    edges: list[dict[str, Any]] = []
+    worst = (-1, -1.0, [-1, -1])
+    for a in range(len(chain) - 1):
+        i, j = int(chain[a]), int(chain[a + 1])
+        edge = {"k": a, "edge": [i, j], "z_struct": float(z_struct[a]), "z_path": float(z_path[a]),
+                "r_struct": float(r_struct[a]), "r_path": float(r_path[a])}
+        edges.append(edge)
+        zmax = max(edge["z_struct"], edge["z_path"])
+        if zmax > worst[1]:
+            worst = (a, zmax, [i, j])
+    return {
+        "verdict": all(max(e["z_struct"], e["z_path"]) <= float(z_th) for e in edges),
+        "weakest_link": {"k": worst[0], "edge": worst[2], "zscore": worst[1]},
+        "coherence_gain": float(gain),
+        "edges": edges,
+    }

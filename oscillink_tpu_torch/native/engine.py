@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from ..core.receipts import chain_receipt_body
 from ..ops.kernels import build as _kbuild
 
 __all__ = ["NativeBuildError", "NativeEngine", "load_engine", "native_available"]
@@ -419,40 +420,8 @@ class NativeEngine:
 
         Ynorm = self.Y / (self.sqrt_deg + 1e-12)[:, None]
         ydiff2 = np.sum((Ynorm[ci] - Ynorm[cj]) ** 2, axis=1)
-        gain = float(
-            np.sum(0.5 * self.lamC * np.maximum(w_c, 0.0) * (ydiff2 - d2_c))
-        )
-
-        edges = []
-        worst = (-1, -1.0, (-1, -1))
-        for a in range(len(chain) - 1):
-            i, j = chain[a], chain[a + 1]
-            edges.append(
-                {
-                    "k": int(a),
-                    "edge": [i, j],
-                    "z_struct": float(z_struct[a]),
-                    "z_path": float(z_path[a]),
-                    "r_struct": float(r_struct[a]),
-                    "r_path": float(r_path[a]),
-                }
-            )
-            zmax = max(float(z_struct[a]), float(z_path[a]))
-            if zmax > worst[1]:
-                worst = (a, zmax, (i, j))
-        verdict = all(
-            max(e["z_struct"], e["z_path"]) <= float(z_th) for e in edges
-        )
-        return {
-            "verdict": bool(verdict),
-            "weakest_link": {
-                "k": int(worst[0]),
-                "edge": [int(worst[2][0]), int(worst[2][1])],
-                "zscore": float(worst[1]),
-            },
-            "coherence_gain": gain,
-            "edges": edges,
-        }
+        gain = np.sum(0.5 * self.lamC * np.maximum(w_c, 0.0) * (ydiff2 - d2_c))
+        return chain_receipt_body(chain, z_struct, z_path, r_struct, r_path, gain, z_th)
 
     def clear_chain(self) -> None:
         self.lamP = 0.0
@@ -568,11 +537,9 @@ class NativeEngine:
             np.ascontiguousarray(Ustar, dtype=np.float32), self.N, self.k,
             self.D, np.float32(self.lamC), np.float32(z_th), j, z, r, flag,
         )
-        return [
-            {"edge": [int(i), int(j[i])], "z": float(z[i]), "residual": float(r[i])}
-            for i in range(self.N)
-            if flag[i]
-        ]
+        from .listing import list_flagged  # listing.py imports this module
+
+        return list_flagged(flag, j, z, r)
 
     def bundle(
         self, k: int = 8, alpha: float = 0.5, *, diversify: bool = True

@@ -35,7 +35,7 @@ import torch
 from ..ops.kernels import build as _kbuild
 from .engine import NativeBuildError, _cxx, compile_library
 
-__all__ = ["list_null_points", "pack_null_rows"]
+__all__ = ["list_flagged", "list_null_points", "pack_null_rows"]
 
 _SRC = Path(__file__).with_name("listing.c")
 _LOCK = threading.Lock()
@@ -106,3 +106,12 @@ def list_null_points(rows: torch.Tensor) -> tuple[list[dict], bool]:
     if build is None:
         return _python_listing(a), False
     return build(a.ctypes.data, a.shape[0]), True
+
+
+def list_flagged(flag, j, z, r) -> list[dict]:
+    """The null-point dicts of the rows i where host ``flag[i]`` is set, from
+    the [N] vectors (numpy arrays or tensors) of their argmax-residual
+    neighbour j, z-score and residual (float32), in row order."""
+    flag, j, z, r = (torch.as_tensor(a) for a in (flag, j, z, r))
+    i = torch.arange(flag.shape[0], dtype=torch.int32)
+    return list_null_points(pack_null_rows(i, j, z, r)[flag.bool()])[0]

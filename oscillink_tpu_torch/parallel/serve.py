@@ -28,7 +28,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core.receipts import chain_receipt_body
 from ..models.coherence import EnergyParams
+from ..native.listing import list_flagged
 from ..ops.graph import Graph, mmr_select, normalize_rows, resolve_similarity
 from ..ops.path import build_path_graph
 from .mesh import Mesh, all_gather, gather_rows, psum, split_rows
@@ -97,10 +99,6 @@ class _Receipt:
             j_best = torch.gather(self.op.idx[s], 1, slot)[:, 0]
             out.append(((r_best > 0) & (z_best > z_th), j_best, z_best, r_best))
         return out
-
-
-def _host(parts) -> np.ndarray:
-    return gather_rows(parts).numpy()
 
 
 def sharded_serve(
@@ -181,13 +179,9 @@ def sharded_serve(
     scalars = torch.stack([dH, total(coh), total(anchor), total(query),
                            n_edges.to(torch.float32)]).cpu().numpy()
 
-    nflag, nj, nz, nr = (_host([part[i] for part in nulls]) for i in range(4))
-    score_h, align_h, picks_h = score_full.cpu().numpy(), _host(align), picks.cpu().numpy()
-    flagged = np.flatnonzero(nflag)
-    null_points = [
-        {"edge": [int(i), int(nj[i])], "z": float(nz[i]), "residual": float(nr[i])}
-        for i in flagged
-    ]
+    null_points = list_flagged(*(gather_rows([part[i] for part in nulls]) for i in range(4)))
+    score_h, picks_h = score_full.cpu().numpy(), picks.cpu().numpy()
+    align_h = gather_rows(align).numpy()
     bundle = (
         [{"id": int(i), "score": float(score_h[i]), "align": float(align_h[i])} for i in picks_h]
         if k_bundle else None
@@ -253,33 +247,8 @@ def sharded_chain_receipt(
     stats = _chain_edge_stats(g, pg, all_gather(mesh, Ustar)[0], all_gather(mesh, Y_l)[0],
                               lam.lamC, chain)
     z_s, z_p, r_s, r_p = (t.cpu().numpy() for t in stats[:4])
-    gain = float(torch.sum(stats[4]))
-
-    edges: list[dict[str, Any]] = []
-    worst = (-1, -1.0, (-1, -1))
-    for a in range(len(chain) - 1):
-        i, j = int(chain[a]), int(chain[a + 1])
-        edges.append({
-            "k": int(a),
-            "edge": [i, j],
-            "z_struct": float(z_s[a]),
-            "z_path": float(z_p[a]),
-            "r_struct": float(r_s[a]),
-            "r_path": float(r_p[a]),
-        })
-        zmax = max(float(z_s[a]), float(z_p[a]))
-        if zmax > worst[1]:
-            worst = (a, zmax, (i, j))
-    verdict = all(max(float(e["z_struct"]), float(e["z_path"])) <= float(z_th) for e in edges)
     return {
-        "verdict": bool(verdict),
-        "weakest_link": {
-            "k": int(worst[0]),
-            "edge": [int(worst[2][0]), int(worst[2][1])],
-            "zscore": float(worst[1]),
-        },
-        "coherence_gain": gain,
-        "edges": edges,
+        **chain_receipt_body(chain, z_s, z_p, r_s, r_p, torch.sum(stats[4]), z_th),
         "mesh_devices": int(mesh.size),
         "ustar_iters": int(it_u),
         "ustar_res": float(res_u),

@@ -29,9 +29,8 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import __version__
 from ..core.lattice import OscillinkLattice, compute_graph_token, compute_state_sig
-from ..core.receipts import sign_payload
+from ..core.receipts import receipt_body
 from ..native import engine as _engine
 from ..ops.graph import resolve_similarity
 from .config import get_settings
@@ -191,10 +190,9 @@ def native_settle(
     a cache lookup) don't rebuild it; t_ms then covers the settle only —
     the caller owns the prep timing."""
     t0 = time.perf_counter()
-    eng, psi, state_sig, k_eff, n, d = (
+    eng, _, state_sig, k_eff, *_ = (
         prepared if prepared is not None else _engine_for_request(sreq, eff_params)
     )
-    Y = eng.Y
     stats = eng.settle(
         dt=sreq.options.dt, max_iters=sreq.options.max_iters, tol=sreq.options.tol
     )
@@ -206,59 +204,16 @@ def native_settle(
     receipt = None
     if want_receipt:
         Ustar, uiters, ures = eng.solve_ustar()
-        dH = eng.deltaH(eng.U, Ustar)
-        coh, anchor, query = eng.per_node(Ustar)
-        nulls = eng.null_points(Ustar)
-        meta: dict[str, Any] = {
-            "ustar_cached": False,
-            "ustar_solves": 1,
-            "ustar_cache_hits": 0,
-            "ustar_converged": bool(ures <= 1e-4),
-            "ustar_res": float(ures),
-            "ustar_iters": int(uiters),
-            "ustar_solve_ms": 0.0,
-            "graph_build_ms": 0.0,
-            "last_settle_ms": float(t_ms),
-            "avg_degree": float((eng.w > 0).sum() / max(n, 1)),
-            "edge_density": float((eng.w > 0).sum() / max(n * (n - 1), 1)),
-            "gates_min": float(eng.B.min()),
-            "gates_max": float(eng.B.max()),
-            "gates_mean": float(eng.B.mean()),
-            "gates_uniform": bool(np.allclose(eng.B, eng.B[0])),
-            "state_sig": state_sig,
-            "receipt_detail": "full",
-            "backend": "native",
-            "null_points_summary": {
-                "total_null_points": len(nulls),
-                "returned_null_points": len(nulls),
-                "null_cap_applied": False,
-            },
-        }
         s = get_settings()
-        if s.enable_signature and s.receipt_secret:
-            payload = {
-                "sig_v": 1,
-                "mode": "minimal",
-                "state_sig": state_sig,
-                "deltaH_total": float(dH),
-            }
-            meta["signature"] = {
-                "algorithm": "HMAC-SHA256",
-                "payload": payload,
-                "signature": sign_payload(payload, s.receipt_secret),
-            }
-        receipt = {
-            "version": str(__version__),
-            "deltaH_total": float(dH),
-            "coh_drop_sum": float(coh.sum()),
-            "anchor_pen_sum": float(anchor.sum()),
-            "query_term_sum": float(query.sum()),
-            "cg_iters": int(stats["iters"]),
-            "residual": float(stats["res"]),
-            "t_ms": float(t_ms),
-            "null_points": nulls,
-            "meta": meta,
-        }
+        receipt = receipt_body(
+            deltaH_total=eng.deltaH(eng.U, Ustar), sums=[t.sum() for t in eng.per_node(Ustar)],
+            cg_iters=stats["iters"], residual=stats["res"], t_ms=t_ms,
+            null_points=eng.null_points(Ustar),
+            ustar_converged=ures <= 1e-4, ustar_res=ures, ustar_iters=uiters,
+            last_settle_ms=t_ms, n_edges=(eng.w > 0).sum(), gates=eng.B, state_sig=state_sig,
+            backend="native",
+            secret=s.receipt_secret if s.enable_signature and s.receipt_secret else None,
+        )
 
     bundle = None
     if sreq.options.bundle_k:

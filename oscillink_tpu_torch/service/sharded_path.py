@@ -27,9 +27,8 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import __version__
 from ..core.lattice import OscillinkLattice, compute_graph_token, compute_state_sig
-from ..core.receipts import sign_payload
+from ..core.receipts import _null_cap_env, null_summary, receipt_body
 from ..ops.graph import resolve_similarity
 from ..parallel.mesh import Mesh
 from .config import get_settings
@@ -188,77 +187,28 @@ def sharded_settle(
     t_ms = 1000.0 * (time.perf_counter() - t0)
 
     state_sig, _ = request_state_sig(sreq, eff_params, Y)
-    B = gates if gates is not None else np.ones(n, dtype=np.float32)
 
     receipt = None
     if want_receipt:
-        dH = out["deltaH"]
-        # honor OSCILLINK_RECEIPT_NULL_CAP exactly like the device path
-        # (core/lattice.py null-cap block): keep the highest-z entries —
-        # this tier's N is where uncapped null lists are megabytes of JSON
+        # the null cap as the device route reads it, kept to the highest z
+        # by a stable sort: this tier's N is where uncapped null lists are
+        # megabytes of JSON
         nulls = out["null_points"]
-        total_nulls = len(nulls)
-        cap = 0
-        try:
-            cap = int(os.getenv("OSCILLINK_RECEIPT_NULL_CAP", "0").strip())
-        except ValueError:
-            cap = 0
-        cap_applied = 0 < cap < total_nulls
-        if cap_applied:
+        cap = _null_cap_env()
+        if 0 < cap < len(nulls):
             nulls = sorted(nulls, key=lambda e: -e["z"])[:cap]
-            out["null_points"] = nulls
-        meta: dict[str, Any] = {
-            "ustar_cached": False,
-            "ustar_solves": 1,
-            "ustar_cache_hits": 0,
-            "ustar_converged": out["ustar_converged"],
-            "ustar_res": out["ustar_res"],
-            "ustar_iters": out["ustar_iters"],
-            "ustar_solve_ms": 0.0,
-            "graph_build_ms": 0.0,
-            "last_settle_ms": float(t_ms),
-            "deltaH_mode": "standard",
-            "avg_degree": float(out["n_edges"] / max(n, 1)),
-            "edge_density": float(out["n_edges"] / max(n * (n - 1), 1)),
-            "gates_min": float(B.min()),
-            "gates_max": float(B.max()),
-            "gates_mean": float(B.mean()),
-            "gates_uniform": bool(np.allclose(B, B[0])),
-            "state_sig": state_sig,
-            "receipt_detail": "full",
-            "backend": "sharded",
-            "mesh_devices": out["mesh_devices"],
-            "null_points_summary": {
-                "total_null_points": total_nulls,
-                "returned_null_points": len(nulls),
-                "null_cap_applied": cap_applied,
-            },
-        }
         s = get_settings()
-        if s.enable_signature and s.receipt_secret:
-            payload = {
-                "sig_v": 1,
-                "mode": "minimal",
-                "state_sig": state_sig,
-                "deltaH_total": float(dH),
-            }
-            meta["signature"] = {
-                "algorithm": "HMAC-SHA256",
-                "payload": payload,
-                "signature": sign_payload(payload, s.receipt_secret),
-            }
-        receipt = {
-            "version": str(__version__),
-            "deltaH_total": float(dH),
-            "coh_drop_sum": out["coh_drop_sum"],
-            "anchor_pen_sum": out["anchor_pen_sum"],
-            "query_term_sum": out["query_term_sum"],
-            "cg_iters": out["settle_iters"],
-            "residual": out["settle_res"],
-            "t_ms": float(t_ms),
-            "null_points": out["null_points"],
-            "meta": meta,
-        }
+        receipt = receipt_body(
+            deltaH_total=out["deltaH"],
+            sums=(out["coh_drop_sum"], out["anchor_pen_sum"], out["query_term_sum"]),
+            cg_iters=out["settle_iters"], residual=out["settle_res"], t_ms=t_ms,
+            null_points=nulls, null_points_summary=null_summary(nulls, len(out["null_points"])),
+            ustar_converged=out["ustar_converged"], ustar_res=out["ustar_res"],
+            ustar_iters=out["ustar_iters"], last_settle_ms=t_ms, deltaH_mode="standard",
+            n_edges=out["n_edges"], gates=gates if gates is not None else np.ones(n, np.float32),
+            state_sig=state_sig, backend="sharded", mesh_devices=out["mesh_devices"],
+            secret=s.receipt_secret if s.enable_signature and s.receipt_secret else None,
+        )
 
     stats = {"iters": out["settle_iters"], "res": out["settle_res"], "t_ms": t_ms}
     return {

@@ -175,3 +175,141 @@ def test_receipt_lists_in_python_without_a_compiler(monkeypatch, tmp_path):
     assert lat.stats["null_listings_python"] == before["null_listings_python"] + 1
     assert lat.stats["null_listings_native"] == before["null_listings_native"]
     assert not any((tmp_path / "build").glob("osclisting_*"))
+
+
+# -- the native engine's and the mesh route's listings ------------------------
+
+
+def _engine_comprehension(flag, j, z, r):
+    """`NativeEngine.null_points` as it listed before the packed rows."""
+    return [
+        {"edge": [int(i), int(j[i])], "z": float(z[i]), "residual": float(r[i])}
+        for i in range(len(flag))
+        if flag[i]
+    ]
+
+
+def _mesh_comprehension(nflag, nj, nz, nr):
+    """`parallel.serve.sharded_serve` as it listed before the packed rows."""
+    return [
+        {"edge": [int(i), int(nj[i])], "z": float(nz[i]), "residual": float(nr[i])}
+        for i in np.flatnonzero(nflag)
+    ]
+
+
+def _take_path(monkeypatch, path):
+    if path == "native":
+        if listing._builder() is None:
+            pytest.skip("the native listing does not build here (no compiler or no Python.h)")
+    else:
+        monkeypatch.setattr(listing, "_builder", lambda: None)
+
+
+@pytest.mark.parametrize("path", ["native", "python"])
+@pytest.mark.parametrize("case", ["all", "none", "one", "wide_index", "inexact"])
+@pytest.mark.parametrize("route", ["engine", "mesh"])
+def test_flagged_listing_matches_the_routes_comprehensions(monkeypatch, route, case, path):
+    """`list_flagged` on each route's own buffers (the engine's numpy uint8
+    flags and int32 neighbours; the mesh's gathered bool and int64 tensors)
+    against the comprehension that route used."""
+    _take_path(monkeypatch, path)
+    flag, j, z, r = _case(case)
+    if route == "engine":
+        args = (flag.numpy().astype(np.uint8), j.numpy(), z.numpy(), r.numpy())
+        want = _engine_comprehension(*args)
+    else:
+        args = (flag, j.to(torch.int64), z, r)
+        want = _mesh_comprehension(*(a.numpy() for a in args))
+    got = listing.list_flagged(*args)
+    assert got == want and len(got) == int(flag.sum())
+    _assert_types(got)
+
+
+@pytest.mark.parametrize("path", ["native", "python"])
+@pytest.mark.parametrize("z_th", [3.0, -1e30, 1e30])
+def test_engine_null_points_list_as_before(monkeypatch, path, z_th):
+    """`NativeEngine.null_points` against its comprehension over the
+    engine's raw flags: the default threshold, every row with a positive
+    residual, and none."""
+    from oscillink_tpu_torch.native import NativeEngine, native_available
+
+    if not native_available():
+        pytest.skip("native build unavailable")
+    _take_path(monkeypatch, path)
+    rng = np.random.default_rng(4)
+    Y = rng.standard_normal((90, 12)).astype(np.float32)
+    eng = NativeEngine(Y, kneighbors=5)
+    eng.set_query(rng.standard_normal(12).astype(np.float32))
+    eng.settle()
+    Us = np.ascontiguousarray(eng.solve_ustar()[0])
+    n = eng.N
+    j, z, r = np.zeros(n, np.int32), np.zeros(n, np.float32), np.zeros(n, np.float32)
+    flag = np.zeros(n, np.uint8)
+    eng._lib.osc_null_points(eng.idx, eng.w, eng.sqrt_deg, Us, n, eng.k, eng.D,
+                             np.float32(eng.lamC), np.float32(z_th), j, z, r, flag)
+    got = eng.null_points(Us, z_th=z_th)
+    assert got == _engine_comprehension(flag, j, z, r)
+    assert len(got) == int(flag.sum()) and (len(got) > 0) == (z_th < 1e30)
+    _assert_types(got)
+
+
+@pytest.mark.parametrize("path", ["native", "python"])
+def test_mesh_null_points_list_as_before(monkeypatch, path):
+    """`sharded_serve`'s null points against its comprehension over the
+    gathered flags it listed."""
+    from oscillink_tpu_torch.parallel import serve
+    from oscillink_tpu_torch.parallel.mesh import lattice_mesh
+
+    _take_path(monkeypatch, path)
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return listing.list_flagged(*args)
+
+    monkeypatch.setattr(serve, "list_flagged", spy)
+    lat = _lattice()
+    out = serve.sharded_serve(lattice_mesh(devices=[torch.device("cpu")] * 4), lat.Y, lat.psi,
+                              k=5)
+    (args,) = seen
+    want = _mesh_comprehension(*(a.numpy() for a in args))
+    assert out["null_points"] == want and 0 < len(want) < lat.N
+    _assert_types(out["null_points"])
+
+
+@pytest.mark.parametrize("cap", ["2", "1000", "0", "junk"])
+def test_mesh_receipt_caps_as_before(monkeypatch, cap):
+    """The mesh route's receipt under ``OSCILLINK_RECEIPT_NULL_CAP``: the
+    uncapped list sorted stably by -z and cut to the cap, when the cap is
+    positive and below the count; otherwise the whole list."""
+    from oscillink_tpu_torch.service import LocalClient
+    from oscillink_tpu_torch.service import config as port_config
+    from oscillink_tpu_torch.service.api import create_state
+
+    for var in ("OSCILLINK_API_KEYS", "OSCILLINK_NATIVE_SMALL_N", "OSCILLINK_RECEIPT_NULL_CAP",
+                "OSCILLINK_ADAPTIVE_PROFILES"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("OSCILLINK_SHARDED_MIN_N", "64")
+    monkeypatch.setenv("OSCILLINK_DISABLE_ST", "1")
+    port_config.get_settings.cache_clear()
+    client = LocalClient(create_state(device="cpu", mesh=[torch.device("cpu")] * 8))
+    rng = np.random.default_rng(9)
+    Y = rng.standard_normal((128, 8)).astype(np.float32)
+    Y[5] += 25.0
+    Y[60] -= 25.0
+    p = {"Y": Y.tolist(), "psi": rng.standard_normal(8).astype(np.float32).tolist(),
+         "options": {"max_iters": 8, "tol": 1e-3}}
+    full = client.post("/v1/receipt", json_body=p).json()["receipt"]
+    monkeypatch.setenv("OSCILLINK_RECEIPT_NULL_CAP", cap)
+    rec = client.post("/v1/receipt", json_body=p).json()["receipt"]
+    port_config.get_settings.cache_clear()
+    assert rec["meta"]["backend"] == "sharded"
+    nulls, total = full["null_points"], len(full["null_points"])
+    applied = cap == "2"
+    want = sorted(nulls, key=lambda e: -e["z"])[:2] if applied else nulls
+    assert 2 < total < 1000 and rec["null_points"] == want
+    assert rec["meta"]["null_points_summary"] == {
+        "total_null_points": total,
+        "returned_null_points": len(want),
+        "null_cap_applied": applied,
+    }

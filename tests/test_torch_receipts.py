@@ -204,3 +204,113 @@ def test_minimal_subset_and_component_signatures_match():
     assert signed_t == signed_j
     assert jsign.verify_component(signed_t, "z") and tsign.verify_component(signed_j, "z")
     assert not tsign.verify_component(dict(signed_j, deltaH=2.0), "z")
+
+
+# -- the receipt's key order, route by route ---------------------------------
+
+_ORDER_ENV = ("OSCILLINK_API_KEYS", "OSCILLINK_NATIVE_SMALL_N", "OSCILLINK_SHARDED_MIN_N",
+              "OSCILLINK_RECEIPT_NULL_CAP", "OSCILLINK_ADAPTIVE_PROFILES",
+              "OSCILLINK_RECEIPT_DYNAMICS")
+_ROUTE_ENV = {"device": {}, "native": {"OSCILLINK_NATIVE_SMALL_N": "2048"},
+              "mesh": {"OSCILLINK_SHARDED_MIN_N": "64"}}
+
+
+def _key_orders(x, path="", out=None):
+    """The key order of every dict in ``x`` by its path, list positions
+    merged (``[]``), so two bodies whose lists differ in length compare."""
+    out = {} if out is None else out
+    if isinstance(x, dict):
+        out.setdefault(path, set()).add(tuple(x))
+        for k, v in x.items():
+            _key_orders(v, f"{path}.{k}", out)
+    elif isinstance(x, list):
+        for v in x:
+            _key_orders(v, f"{path}[]", out)
+    return out
+
+
+def _served(route, endpoint, monkeypatch):
+    """The same seeded request through the JAX service and the port's, on
+    ``route``, with a receipt secret; returns (port body, JAX body)."""
+    import random
+
+    from oscillink_tpu.service import LocalClient as JaxClient
+    from oscillink_tpu.service import config as jax_config
+    from oscillink_tpu.service.api import create_state as jax_create_state
+    from oscillink_tpu_torch.native import native_available
+    from oscillink_tpu_torch.service import LocalClient
+    from oscillink_tpu_torch.service import config as port_config
+    from oscillink_tpu_torch.service.api import create_state
+
+    if route == "native" and not native_available():
+        pytest.skip("native build unavailable")
+    for var in _ORDER_ENV:
+        monkeypatch.delenv(var, raising=False)
+    for var, val in {**_ROUTE_ENV[route], "OSCILLINK_RECEIPT_SECRET": "order",
+                     "OSCILLINK_DISABLE_ST": "1"}.items():
+        monkeypatch.setenv(var, val)
+    port_config.get_settings.cache_clear()
+    jax_config.get_settings.cache_clear()
+    mesh = [torch.device("cpu")] * 8 if route == "mesh" else None
+    rng = np.random.default_rng(21)
+    body = {"Y": rng.standard_normal((64, 8)).astype(np.float32).tolist(),
+            "psi": rng.standard_normal(8).astype(np.float32).tolist(),
+            "options": {"max_iters": 8, "tol": 1e-3, "include_receipt": True}}
+    if endpoint == "/v1/chain/receipt":
+        body.update(chain=[0, 3, 5, 9], z_th=1.5)
+    out = []
+    for client in (LocalClient(create_state(device="cpu", mesh=mesh)),
+                   JaxClient(jax_create_state())):
+        random.seed(0)
+        r = client.post(endpoint, json_body=body)
+        assert r.status_code == 200, r.json()
+        out.append(r.json())
+    port_config.get_settings.cache_clear()
+    jax_config.get_settings.cache_clear()
+    want = {"device": (None, "device"), "native": ("native",), "mesh": ("sharded",)}[route]
+    assert out[0]["meta"].get("backend") in want and out[1]["meta"].get("backend") in want
+    return out
+
+
+@pytest.mark.parametrize(
+    "route,endpoint",
+    [("device", "/v1/receipt"), ("device", "/v1/settle"), ("device", "extended"),
+     ("native", "/v1/settle"), ("mesh", "/v1/settle"),
+     ("device", "/v1/chain/receipt"), ("native", "/v1/chain/receipt"),
+     ("mesh", "/v1/chain/receipt")],
+)
+def test_receipt_key_order_matches_jax(route, endpoint, monkeypatch):
+    """Every dict of the receipt (its ``meta``, signature block and signed
+    payload, null points and summary) and of the chain receipt (its edges
+    and weakest link) keeps the JAX package's key order, on each route."""
+    if endpoint == "extended":
+        # the lattice's extended payload, stamped with a key id, and its
+        # dynamics block: the service signs the minimal payload only
+        import oscillink_tpu as ot
+
+        import oscillink_tpu_torch as pt
+
+        monkeypatch.setenv("OSCILLINK_RECEIPT_DYNAMICS", "1")
+        rng = np.random.default_rng(22)
+        Y = rng.standard_normal((60, 8)).astype(np.float32)
+        psi = rng.standard_normal(8).astype(np.float32)
+        got = []
+        for lat in (pt.Oscillink(Y, kneighbors=5, device="cpu"), ot.Oscillink(Y, kneighbors=5)):
+            lat.set_query(psi)
+            lat.set_receipt_secret("order", kid="k1")
+            lat.set_signature_mode("extended")
+            lat.settle(max_iters=8, tol=1e-3)
+            got.append(lat.receipt())
+        port, jax_ = got
+        assert port["meta"]["signature"]["payload"]["mode"] == "extended"
+        assert list(port["meta"]["signature"]) == ["algorithm", "payload", "signature", "kid"]
+        assert list(port["meta"])[-2:] == ["signature", "dynamics"]
+    else:
+        port_body, jax_body = _served(route, endpoint, monkeypatch)
+        key = "chain_receipt" if endpoint == "/v1/chain/receipt" else "receipt"
+        port, jax_ = port_body[key], jax_body[key]
+    if "edges" in port:
+        assert list(port["edges"][0]) == ["k", "edge", "z_struct", "z_path", "r_struct", "r_path"]
+    else:
+        assert "signature" in port["meta"] and port["null_points"]
+    assert _key_orders(port) == _key_orders(jax_)
