@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2, K3 and K4
-(``csrc/window_spmv3f.cu``, three variants of one gather kernel) and K5
-(``csrc/bucket_gather.cu``) from the checkout, one ``nvcc`` per source, all
+(``csrc/window_spmv3f.cu``, three variants of one gather kernel), K5
+(``csrc/bucket_gather.cu``) and the CG's fused passes
+(``csrc/cg_fused.cu``) from the checkout, one ``nvcc`` per source, all
 started together, and holds each against its plain PyTorch version (K1
 also bit-equal from launch to launch and across forced column-slab widths,
 and its slab widths swept and timed in turns at the corpus shape, at
@@ -127,6 +128,14 @@ through the public entry points:
   shard apply counts its launches: K1 once (twice on the gather halo
   tier), K3 or K2 once on the windowed halo tier.
 
+* the CG's fused passes (``csrc/cg_fused.cu``, ``cg_fused``): each held to
+  its plain twin at 171332 and 522931 x 768 (the corpus cells), 500 x 768,
+  4099 x 97 and 5000 x 1 (x, r, p and Ap bit-equal, column sums within one
+  ulp of float64 sums, bit-equal from launch to launch) and timed against
+  its byte bound; the corpus flow at 171332 x 768 x k8 through them: U* and
+  a settle step twice, bit-equal, 3 + 6 launches an iteration, no classic
+  iteration, the classic body's iterations and U within 1e-6.
+
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
 never falls back to the CPU.  Without CUDA it exits 1 before printing any
@@ -179,7 +188,9 @@ from oscillink_tpu_torch.preprocess.diffusion import diffusion_sources, screened
 from oscillink_tpu_torch.ops import graph as tgraph
 from oscillink_tpu_torch.ops import ivf as tivf
 from oscillink_tpu_torch.ops.graph import build_graph, graph_from_topk, lap_matvec, normalize_rows
+from oscillink_tpu_torch.ops import solver as tsolver
 from oscillink_tpu_torch.ops.kernels import bucket_gather as bg
+from oscillink_tpu_torch.ops.kernels import cg_fused
 from oscillink_tpu_torch.ops.kernels import build as kbuild
 from oscillink_tpu_torch.ops.kernels import spmv
 from oscillink_tpu_torch.ops.kernels import window_spmv as tw
@@ -334,6 +345,18 @@ AUTO_MESH = dict(n=131072, d=768, k=8)
 HIER = dict(n=131072, d=768, k=8, shards=8)
 HIER_CPU = dict(n=16384, d=768, k=8, shards=8)
 SHARDED_MIN_N = "4096"  # the service's sharded threshold below the flagship's 5000 rows
+# the CG's fused passes (csrc/cg_fused.cu): the two corpus cells' shapes
+# (trec_covid, beir_quora), a service request's, a width on the scalar path
+# and D = 1 (a diffusion solve), each pass against its twin; the corpus
+# flow at trec_covid's shape; lane splits of the residual at D = 768
+CG_SHAPES = (dict(n=171332, d=768), dict(n=522931, d=768), dict(n=500, d=768),
+             dict(n=4099, d=97), dict(n=5000, d=1))
+CG_TIMED_N = 100_000  # shapes from this many rows are timed
+CG_FLOW = dict(n=171332, d=768, k=8)
+CG_LANES = (3, 768)
+CG_LAMS = (1.0, 0.5, 4.0)  # λ_G, λ_C, λ_Q of the twins' checks
+CG_ULPS = 1  # column sums, kernel vs torch's f64 sums: two f64 orders, one rounding to f32
+CG_FORM_TOL = 1e-6  # U, fused vs classic body: relative to max|U|
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
@@ -4073,6 +4096,268 @@ def profiling_phase() -> dict:
     return {"launches": spmv.launches}
 
 
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two float32 tensors in units in the
+    last place (0 where both are the same NaN)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def exact_parts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[1, C] float64 column sums of a ⊙ b (the products exact in float64):
+    a partials row for `cg_fused.alpha_ref` and `finish_ref`."""
+    a2, b2 = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    return (a2.double() * b2.double()).sum(0, keepdim=True)
+
+
+def cg_pass_checks(n: int, d: int, seed: int) -> tuple[dict, dict, dict]:
+    """Each fused CG pass (`ops.kernels.cg_fused`) against its twin on the
+    card on random [n, d] blocks: x, r, p and Ap bit-equal, and bit-equal
+    from launch to launch (partials too); with and without the
+    preconditioner, the operator's two forms and its dot form.  The column
+    sums, after their finalize launches (α; rz', β and the residual at 1
+    and more lanes), within `CG_ULPS` of the same finalize of float64 sums
+    taken by torch (`exact_parts`); their distance from the twins' (float32
+    ``torch.sum``, as the classic body) is read, not held.  Returns the
+    ulps against the float64 sums, against the twins, and the inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def blk(scale=1.0):
+        return torch.randn((n, d), generator=gen, device="cuda") * scale
+
+    def vec(lo, hi, size=d):
+        return lo + (hi - lo) * torch.rand(size, generator=gen, device="cuda")
+
+    lam = tcoh.EnergyParams.make(*CG_LAMS, device="cuda")
+    B = vec(0.0, 1.0, n)
+    inv_M = 1.0 / (lam.lamG + lam.lamQ * B + 1e-12)
+    p, L, b, x, r = blk(), blk(), blk(), blk(), blk(0.1)
+    rz, alpha, beta = vec(0.5, 1.5), vec(0.0, 1e-2), vec(0.0, 0.5)
+    tag = f"[{n}, {d}]"
+    u, tw_u = {}, {}
+
+    def same(a, b, what):
+        check(torch.equal(a, b), f"cg_fused {what} != twin at {tag}")
+
+    def sums(key, got, exact, twin):
+        u[key], tw_u[key] = ulps(got, exact), ulps(got, twin)
+
+    for form, dt in (("operator", None), ("settle", 1.0)):
+        Lk, Lt, La = L.clone(), L.clone(), L.clone()
+        Ak, pk = cg_fused.combine(p, Lk, lam, B, dt)
+        At, pt = cg_fused.combine_ref(p, Lt, lam, B, dt)
+        Aa, pa = cg_fused.combine(p, La, lam, B, dt)
+        check(Ak.data_ptr() == Lk.data_ptr(), "cg_fused combine did not write into L")
+        same(Ak, At, f"combine ({form}) Ap")
+        check(torch.equal(Ak, Aa) and torch.equal(pk, pa), f"combine ({form}) run to run at {tag}")
+        sums(f"combine_{form}", cg_fused.alpha(pk, rz),
+             cg_fused.alpha_ref(exact_parts(p, Ak), rz), cg_fused.alpha_ref(pt, rz))
+    sums("dot", cg_fused.alpha(cg_fused.dot(p, L), rz), cg_fused.alpha_ref(exact_parts(p, L), rz),
+         cg_fused.alpha_ref(cg_fused.dot_ref(p, L), rz))
+    for pre in (inv_M, None):
+        key = "pre" if pre is not None else "nopre"
+        rk, qk, sk = cg_fused.residual(b, L, pre)
+        rt, qt, st = cg_fused.residual_ref(b, L, pre)
+        same(rk, rt, f"residual r ({key})")
+        same(qk, qt, f"residual p ({key})")
+        sums(f"residual_{key}", cg_fused.finish(sk)[0], cg_fused.finish_ref(exact_parts(rk, qk))[0],
+             cg_fused.finish_ref(st)[0])
+        xk, rk = x.clone(), r.clone()
+        xo = torch.empty_like(x)
+        zk, qk2 = cg_fused.update(xk, xo, rk, p, L, alpha, pre)
+        xt, rt = x.clone(), r.clone()
+        zt, qt2 = cg_fused.update_ref(xt, xt, rt, p, L, alpha, pre)
+        same(xk, x, f"update x_in ({key}, written)")
+        same(xo, xt, f"update x ({key})")
+        same(rk, rt, f"update r ({key})")
+        xk2, rk2 = x.clone(), r.clone()
+        zk2, qk3 = cg_fused.update(xk2, xk2, rk2, p, L, alpha, pre)
+        check(torch.equal(xk2, xo) and torch.equal(rk2, rk) and torch.equal(zk2, zk)
+              and torch.equal(qk3, qk2), f"update ({key}) run to run or in place at {tag}")
+        z = rk if pre is None else rk * pre[:, None]
+        for q in [1] + [q for q in CG_LANES if d % q == 0 and q > 1]:
+            gk = cg_fused.finish(zk, rz, qk2, q)
+            ge = cg_fused.finish_ref(exact_parts(rk, z), rz, exact_parts(rk, rk), q)
+            gt = cg_fused.finish_ref(zt, rz, qt2, q)
+            for name, a, e, t in zip(("rz", "beta", "res"), gk, ge, gt):
+                sums(f"finish_{name}_{key}_lanes{q}", a, e, t)
+        pk, pt = p.clone(), p.clone()
+        cg_fused.direction(pk, r, beta, pre)
+        cg_fused.direction_ref(pt, r, beta, pre)
+        same(pk, pt, f"direction p ({key})")
+    check(max(u.values()) <= CG_ULPS, f"cg_fused column sums vs float64 at {tag}: {u}")
+    return u, tw_u, dict(p=p, L=L, b=b, x=x, r=r, B=B, inv_M=inv_M, lam=lam, alpha=alpha,
+                         beta=beta, rz=rz)
+
+
+def cg_pass_timing(n: int, d: int, t: dict) -> dict:
+    """Each pass's CUDA-event time against its byte bound (each [n, d] f32
+    block read or written once over `HBM_BYTES_PER_S`) and its twin's."""
+    blk = n * d * 4 / HBM_BYTES_PER_S * 1e3
+    p2 = t["p"].clone()
+    calls = {
+        # name: (kernel, twin, blocks moved)
+        "combine": (lambda: cg_fused.combine(t["p"], t["L"], t["lam"], t["B"], 1.0),
+                    lambda: cg_fused.combine_ref(t["p"], t["L"], t["lam"], t["B"], 1.0), 3),
+        "dot": (lambda: cg_fused.dot(t["p"], t["L"]), lambda: cg_fused.dot_ref(t["p"], t["L"]), 2),
+        "residual": (lambda: cg_fused.residual(t["b"], t["L"], t["inv_M"]),
+                     lambda: cg_fused.residual_ref(t["b"], t["L"], t["inv_M"]), 4),
+        "update": (lambda: cg_fused.update(t["x"], t["x"], t["r"], t["p"], t["L"], t["alpha"],
+                                           t["inv_M"]),
+                   lambda: cg_fused.update_ref(t["x"], t["x"], t["r"], t["p"], t["L"], t["alpha"],
+                                               t["inv_M"]), 6),
+        "direction": (lambda: cg_fused.direction(p2, t["r"], t["beta"], t["inv_M"]),
+                      lambda: cg_fused.direction_ref(p2, t["r"], t["beta"], t["inv_M"]), 3),
+    }
+    rows = {}
+    for name, (kern, twin, blocks) in calls.items():
+        ms = cuda_ms(kern, 20)
+        rows[name] = {"ms": ms, "bound_ms": blocks * blk, "roofline_pct": 100 * blocks * blk / ms,
+                      "plain_ms": cuda_ms(twin, 3), "library_ms": None}
+    pz, pr = cg_fused.update(t["x"], t["x"], t["r"], t["p"], t["L"], t["alpha"], t["inv_M"])
+    pap = cg_fused.dot(t["p"], t["L"])
+    rows["alpha"] = {"ms": cuda_ms(lambda: cg_fused.alpha(pap, t["rz"]), 50),
+                     "partial_rows": pap.shape[0]}
+    rows["finish"] = {"ms": cuda_ms(lambda: cg_fused.finish(pz, t["rz"], pr), 50),
+                      "launches": 2}
+    return rows
+
+
+def cg_iteration_ms(g, lam, B, X, inv_M) -> dict:
+    """One U* CG iteration at the flow's shape, K1 included: the fused
+    passes against the classic eager body (`cg_solve_lanes`' expressions on
+    the same inputs), in turns."""
+    n, d = X.shape
+    op = tcoh._gather_operator(g, None, lam, B)
+    r, p = X * 1e-3, X.clone()
+    rz = torch.sum(r * (r * inv_M[:, None]), dim=0)
+    inv_rows = inv_M.contiguous()
+    x = X.clone()
+
+    def fused():
+        Ap, pap = op(p)
+        al = cg_fused.alpha(pap, rz)
+        prz, prr = cg_fused.update(x, x, r, p, Ap, al, inv_rows)
+        rz_n, be, _ = cg_fused.finish(prz, rz, prr, 1)
+        cg_fused.direction(p, r, be, inv_rows)
+
+    def classic():
+        Ap = tcoh.stationary_matvec(g, None, lam, B, p)
+        al = rz / (torch.sum(p * Ap, dim=0, keepdim=True) + 1e-18)
+        x_n = x + p * al
+        r_n = r - Ap * al
+        torch.amax(torch.linalg.vector_norm(r_n, dim=0, keepdim=True), dim=-1)
+        z = r_n * inv_M[:, None]
+        rz_n = torch.sum(r_n * z, dim=0, keepdim=True)
+        be = rz_n / (rz + 1e-18)
+        return x_n, z + p * be
+
+    return turns_ms({"fused": fused, "classic": classic}, 10)
+
+
+def cg_flow() -> dict:
+    """The corpus flow through the fused CG at trec_covid's shape: U* and a
+    settle step each twice (bit-equal, every iteration fused, the kernels'
+    launches 3 + 6 an iteration), against the classic body on the same
+    inputs (the one-lane lanes-first layout, which keeps it): the same
+    iterations, U within `CG_FORM_TOL`; the lattice's own settle and U*
+    with no classic iteration; then an iteration and the U* solve timed,
+    fused against classic, in turns."""
+    n, d, k = CG_FLOW["n"], CG_FLOW["d"], CG_FLOW["k"]
+    Y, psi = data(n, d)
+    lat = Oscillink(Y, kneighbors=k)
+    lat.set_query(psi)
+    g, Yd, psid, Bd, lam = lat._graph, lat._Y_dev, lat._psi_dev, lat._B_dev, lat._lam()
+    solves = {
+        "ustar": (lambda: tcoh.solve_stationary(g, None, Yd, psid, Bd, lam, tol=1e-4,
+                                                max_iters=64),
+                  None, tcoh.query_rhs(lam, Yd, psid, Bd), lam.lamG + lam.lamQ * Bd, 1e-4, 64),
+        "settle": (lambda: tcoh.settle_step(g, None, Yd, Yd, psid, Bd, lam, dt=1.0, tol=1e-3,
+                                            max_iters=12),
+                   1.0, Yd + 1.0 * tcoh.query_rhs(lam, Yd, psid, Bd),
+                   tcoh._settle_diag(None, lam, Bd, 1.0), 1e-3, 12),
+    }
+    out = {}
+    for name, (fn, dt, rhs, diag, tol, iters) in solves.items():
+        cg_fused.launches = tsolver.fused_iterations = tsolver.classic_iterations = 0
+        U1, it1, res1 = fn()
+        torch.cuda.synchronize()
+        launches = cg_fused.launches
+        U2, it2, res2 = fn()
+        fused_its, classic_its = tsolver.fused_iterations, tsolver.classic_iterations
+
+        def classic_op(X, dt=dt):
+            M = tcoh.stationary_matvec(g, None, lam, Bd, X.view(n, d))
+            return (M if dt is None else X.view(n, d) + dt * M).view(1, n, d)
+
+        Uc, itc, resc = tsolver.cg_solve_lanes(classic_op, rhs[None], x0=Yd[None],
+                                               M_diag=diag[None, :, None], tol=tol,
+                                               max_iters=iters, row_dim=1)
+        err = float((Uc[0] - U1).abs().max() / U1.abs().max())
+        out[name] = {"iters": it1, "res": res1, "classic_iters": int(itc[0]),
+                     "classic_res": float(resc[0]), "cg_launches": launches,
+                     "fused_iterations": fused_its, "classic_iterations": classic_its,
+                     "bit_equal_repeat": bool(torch.equal(U1, U2)), "vs_classic_rel": err}
+        check(torch.equal(U1, U2) and it1 == it2 and res1 == res2,
+              f"cg_flow {name}: two runs differ")
+        check(launches == 3 + 6 * it1, f"cg_flow {name}: {launches} launches for {it1} iterations")
+        check(fused_its == 2 * it1 and classic_its == 0,
+              f"cg_flow {name}: fused {fused_its}, classic {classic_its} for 2 x {it1}")
+        check(int(itc[0]) == it1, f"cg_flow {name}: iterations {it1}, classic body {int(itc[0])}")
+        check(err <= CG_FORM_TOL, f"cg_flow {name}: fused vs classic U {err}")
+        del U1, U2, Uc
+    tsolver.fused_iterations = tsolver.classic_iterations = 0
+    lat.settle(dt=1.0, max_iters=12, tol=1e-3)
+    lat._solve_ustar_device(use_cache=False)
+    torch.cuda.synchronize()
+    out["lattice"] = {"fused_iterations": tsolver.fused_iterations,
+                      "classic_iterations": tsolver.classic_iterations,
+                      "settle_iters": lat.last["iters"], "ustar_iters": lat.last_ustar["iters"]}
+    check(tsolver.classic_iterations == 0 and tsolver.fused_iterations
+          == lat.last["iters"] + lat.last_ustar["iters"], f"cg_flow lattice: {out['lattice']}")
+    inv_M = 1.0 / (lam.lamG + lam.lamQ * Bd + 1e-12)
+    out["iteration_ms"] = cg_iteration_ms(g, lam, Bd, Yd, inv_M)
+    ustar = solves["ustar"]
+
+    def classic_ustar():
+        return tsolver.cg_solve_lanes(
+            lambda X: tcoh.stationary_matvec(g, None, lam, Bd, X.view(n, d)).view(1, n, d),
+            ustar[2][None], x0=Yd[None], M_diag=ustar[3][None, :, None], tol=1e-4, max_iters=64,
+            row_dim=1)
+
+    runs = {"fused": [], "classic": []}
+    for key in ("fused", "classic", "classic", "fused"):
+        t0 = time.perf_counter()
+        (ustar[0] if key == "fused" else classic_ustar)()
+        runs[key].append(sync_ms(t0))
+    out["ustar_ms"] = runs
+    del lat
+    return out
+
+
+def cg_fused_phase() -> dict:
+    """The fused CG passes held to their twins at `CG_SHAPES` (and timed
+    against their byte bounds from `CG_TIMED_N` rows), then `cg_flow`."""
+    t0 = time.perf_counter()
+    rows = []
+    for i, shape in enumerate(CG_SHAPES):
+        u, tw_u, inputs = cg_pass_checks(shape["n"], shape["d"], seed=100 + i)
+        row = {**shape, "max_ulps_vs_f64": max(u.values()), "ulps_vs_f64": u,
+               "max_ulps_vs_twin": max(tw_u.values()), "ulps_vs_twin": tw_u, "bit_equal": True}
+        if shape["n"] >= CG_TIMED_N:
+            row["timing"] = cg_pass_timing(shape["n"], shape["d"], inputs)
+        del inputs
+        torch.cuda.empty_cache()
+        rows.append(row)
+        emit("cg_fused_vs_plain", **row)
+    flow = cg_flow()
+    torch.cuda.empty_cache()
+    emit("cg_fused_flow", **CG_FLOW, **flow, phase_s=time.perf_counter() - t0)
+    return {"rows": rows, "flow": flow}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -4085,9 +4370,9 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
 
-    # 1. build K1, K2-K4 and K5 from the checkout's sources, one nvcc per
-    # source, all started together
-    sources = ("spmv", "window_spmv3f", "bucket_gather")
+    # 1. build K1, K2-K4, K5 and the CG's fused passes from the checkout's
+    # sources, one nvcc per source, all started together
+    sources = ("spmv", "window_spmv3f", "bucket_gather", "cg_fused")
     t0 = time.perf_counter()
     kbuild.build(list(sources))
     build_s = time.perf_counter() - t0
@@ -4213,6 +4498,11 @@ def main() -> int:
     check(U.shape == (CORPUS["n"], CORPUS["d"]) and bool(np.isfinite(U).all()), "U not finite")
     check(np.isfinite(rec["deltaH_total"]) and rec["deltaH_total"] >= 0, "deltaH invalid")
     check(len(bundle) == 8 and len({b["id"] for b in bundle}) == 8, "bundle ids invalid")
+
+    # 6a. the CG's fused passes against their twins at the corpus cells'
+    # shapes, timed against their bounds; the corpus flow through them
+    cg = cg_fused_phase()
+    torch.cuda.empty_cache()
 
     # 6b. the CLI at the corpus tier (and as a module in fresh processes),
     # torch.profiler around a corpus settle, text ingestion on synth3k
@@ -4399,7 +4689,18 @@ def main() -> int:
                if key in val}},
         "chunk_max_abs_err": chunk_rows[key]["max_abs_err"],
         "chunk_width": chunk_rows[key],
-    } for key, kname, _, replaces in WINDOW_KERNELS] + [k5_row]}), flush=True)
+    } for key, kname, _, replaces in WINDOW_KERNELS] + [k5_row] + [{
+        "name": f"cg_{name}",
+        "route": "cuda",
+        "source": "oscillink_tpu_torch/csrc/cg_fused.cu",
+        "replaces": "none (XLA fused oscillink_tpu/ops/solver.py cg_solve's body)",
+        "launches_corpus_flow": {key: cg["flow"][key]["cg_launches"] for key in ("ustar", "settle")},
+        "max_ulps_vs_f64": max(row["max_ulps_vs_f64"] for row in cg["rows"]),
+        "bit_equal": True,
+        "per_shape": {f"{row['n']}x{row['d']}": row["timing"][name]
+                      for row in cg["rows"] if "timing" in row},
+    } for name in ("combine", "dot", "residual", "update", "direction", "alpha", "finish")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

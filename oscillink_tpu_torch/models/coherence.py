@@ -13,12 +13,15 @@ Implicit Euler settle step (reference lattice.py:159-230):
     (I + dt M) U+ = U + dt (lamG Y + lamQ B 1 psi^T).
 
 The gather solves take the classic `cg_solve` up to `LOWMEM_SOLVE_BYTES`
-b-blocks and `cg_solve_lowmem` above (`_pick_cg`).  The JAX low-memory CG
-saves memory because XLA fuses its operator; in eager PyTorch the operator
-is where the blocks go, so the low-memory route also builds its right-hand
-side and applies its operator in place, row block by row block, into the
-one block kernel K1 returns (`_apply_inplace`), with the classic
-operator's arithmetic.  `settle_step(donate_u=True)` is the settle that
+b-blocks and `cg_solve_lowmem` above (`_pick_cg`).  The classic solves'
+operator without a chain prior (`_gather_operator`) is K1 and then the
+fused λ-combination of `ops/kernels/cg_fused.py`, which hands the CG its
+⟨p, M p⟩ partials, so an iteration runs as K1 and the CG's fused passes.
+The JAX low-memory CG saves memory because XLA fuses its operator; in
+eager PyTorch the operator is where the blocks go, so the low-memory route
+also builds its right-hand side and applies its operator in place, row
+block by row block, into the one block kernel K1 returns
+(`_apply_inplace`), with the classic operator's arithmetic.  `settle_step(donate_u=True)` is the settle that
 starts from, and writes into, U's own buffer.
 
 The column-chunked solves (`solve_stationary_chunked`,
@@ -48,6 +51,7 @@ import torch
 
 from ..ops.graph import Graph, lap_matvec
 from ..ops.path import PathGraph, path_lap_matvec
+from ..ops.kernels import cg_fused
 from ..ops.kernels.window_spmv import OneHots, WindowPlan, k_matvec_windowed, lap_matvec_windowed, pad_rows
 from ..ops.solver import LOWMEM_SOLVE_BYTES, cg_solve, cg_solve_kpap, cg_solve_lowmem, row_blocks
 
@@ -99,6 +103,20 @@ def stationary_matvec(
     if pg is not None:
         out = out + lam.lamP * path_lap_matvec(pg, X)
     return out
+
+
+def _gather_operator(g: Graph, pg: Optional[PathGraph], lam: EnergyParams, B: torch.Tensor,
+                     dt: Optional[float] = None):
+    """The classic solves' operator: M X (``X + dt·M X`` with ``dt``).
+    Without a chain prior it is K1 and then the fused λ-combination
+    (`cg_fused.combine`, pass 1 of the CG), which hands the CG back its
+    ⟨X, M X⟩ partials too; with one, the plain block."""
+    if pg is None:
+        Bc = B.contiguous()
+        return lambda X: cg_fused.combine(X, lap_matvec(g, X), lam, Bc, dt)
+    if dt is None:
+        return lambda X: stationary_matvec(g, pg, lam, B, X)
+    return lambda X: X + dt * stationary_matvec(g, pg, lam, B, X)
 
 
 def _pick_cg(b):
@@ -195,12 +213,8 @@ def solve_stationary(
             lambda X: _apply_inplace(g, pg, lam, B, X), _rhs_inplace(lam, Y, psi, B), x0=x0,
             M_diag=M_diag, tol=tol, max_iters=max_iters, overwrite_b=True,
         )
-    rhs = query_rhs(lam, Y, psi, B)
-
-    def M_mul(X):
-        return stationary_matvec(g, pg, lam, B, X)
-
-    return cg_solve(M_mul, rhs, x0=x0, M_diag=M_diag, tol=tol, max_iters=max_iters)
+    return cg_solve(_gather_operator(g, pg, lam, B), query_rhs(lam, Y, psi, B), x0=x0,
+                    M_diag=M_diag, tol=tol, max_iters=max_iters)
 
 
 def solve_stationary_donated(
@@ -329,11 +343,8 @@ def settle_step(
             max_iters=max_iters, overwrite_x0=donate_u, overwrite_b=True,
         )
     rhs = U + dt * query_rhs(lam, Y, psi, B)
-
-    def A_mul(X):
-        return X + dt * stationary_matvec(g, pg, lam, B, X)
-
-    return cg_solve(A_mul, rhs, x0=x0, M_diag=M_diag, tol=tol, max_iters=max_iters)
+    return cg_solve(_gather_operator(g, pg, lam, B, dt), rhs, x0=x0, M_diag=M_diag, tol=tol,
+                    max_iters=max_iters)
 
 
 def _settle_diag(pg: Optional[PathGraph], lam: EnergyParams, B: torch.Tensor, dt: float):

@@ -13,7 +13,9 @@ The loop is a Python loop: it reads ``res`` on the host once per iteration
 `cg_solve_lanes` is the port of ``jax.vmap`` over `cg_solve`: independent
 systems stacked on a lane axis, one operator application an iteration for
 all of them, and each lane frozen at its own trip count.  `cg_solve` is its
-one-lane call, so the two cannot drift apart.
+one-lane call, so the two cannot drift apart.  Where the block allows, an
+iteration runs as three hand-written passes and three small launches
+(`ops.kernels.cg_fused`) in place of some 25 eager ones.
 
 `cg_solve_lowmem` is `cg_solve` with four live [N, D] blocks (x, r, p, Ap):
 its updates run in place, row block by row block, so no [N, D] product is
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
+from .kernels import cg_fused
 
 __all__ = ["cg_solve", "cg_solve_kpap", "cg_solve_lanes", "cg_solve_lowmem", "LOWMEM_SOLVE_BYTES",
            "row_blocks"]
@@ -44,6 +47,14 @@ __all__ = ["cg_solve", "cg_solve_kpap", "cg_solve_lanes", "cg_solve_lowmem", "LO
 # tensors against 85.02 GB less 1.26 GB of headroom (`core/lattice.py`'s
 # working-set model), just above b = 6.357 GB (N = 2.07M at D = 768).
 LOWMEM_SOLVE_BYTES = 6_350_000_000
+
+fused_iterations = 0
+"""CG iterations `cg_solve_lanes` ran through the fused passes
+(`ops.kernels.cg_fused`) since the count was last reset."""
+
+classic_iterations = 0
+"""CG iterations `cg_solve_lanes` ran as its classic eager body since the
+count was last reset."""
 
 # Bytes of one row block of the low-memory forms' temporaries: each update
 # or reduction materialises at most a [rows, D] product of this size.
@@ -142,8 +153,20 @@ def cg_solve_kpap(
     return x, it, res
 
 
+def _fused_layout(b: torch.Tensor, inv_M: Optional[torch.Tensor], row_dim: int) -> bool:
+    """Whether `cg_solve_lanes` runs ``b`` through the fused passes
+    (`ops.kernels.cg_fused`): a non-empty float32 block on the card or the
+    CPU with its rows on dim 0, and a float32 Jacobi inverse of one value a
+    row ([N, 1] or [N, 1, 1]), or none."""
+    if (row_dim != 0 or b.dtype != torch.float32 or b.numel() == 0
+            or b.device.type not in ("cuda", "cpu")):
+        return False
+    return inv_M is None or (inv_M.dtype == torch.float32 and inv_M.dim() == b.dim()
+                             and inv_M.numel() == b.shape[0] == inv_M.shape[0])
+
+
 def cg_solve_lanes(
-    A_mul: Callable[[torch.Tensor], torch.Tensor],
+    A_mul: Callable[[torch.Tensor], torch.Tensor | tuple[torch.Tensor, torch.Tensor]],
     b: torch.Tensor,
     x0: Optional[torch.Tensor] = None,
     M_diag: Optional[torch.Tensor] = None,
@@ -159,9 +182,10 @@ def cg_solve_lanes(
     axis and D columns last: ``row_dim=0`` is ``[N, L, D]`` (L queries on
     one graph), ``row_dim=1`` is ``[L, N, D]`` (L corpora on their disjoint
     union); a 2-D ``[N, D]`` block (``row_dim=0``) is one lane.  ``A_mul``
-    maps such a block to one of its shape; it sees the whole block, so the
-    operator launches once an iteration for all lanes.  ``M_diag`` (the
-    Jacobi diagonal) broadcasts against ``b``.
+    maps such a block to one of its shape, or to ``(A p, ⟨p, A p⟩
+    partials)`` (`ops.kernels.cg_fused.combine`'s pair); it sees the whole
+    block, so the operator launches once an iteration for all lanes.
+    ``M_diag`` (the Jacobi diagonal) broadcasts against ``b``.
 
     Each lane runs `cg_solve`'s arithmetic with its own residual (the max
     column norm over its D columns), trip count and stop test
@@ -170,13 +194,26 @@ def cg_solve_lanes(
     ``while_loop`` does; its columns are still computed and discarded, and
     while every lane is live no select runs.  The loop reads the [L]
     residuals on the host once an iteration and runs the stop test there,
-    so one lane costs the device what `cg_solve` always did.  Returns
-    (x, iterations [L] int32, residuals [L] float32), the last two on the
-    host."""
+    so one lane costs the device what `cg_solve` always did.
+
+    A float32 block with its rows on dim 0 whose Jacobi diagonal is one
+    value a row, or absent (`_fused_layout`), runs its start and every
+    iteration in which all lanes are live through the fused passes of
+    `ops.kernels.cg_fused` (their kernels on the card, their twins on the
+    CPU), x, r and p updated in place (x0 is never written): x, r, p and
+    A p as the classic expressions give them, bit for bit; on the card the
+    column sums in float64 and another order, on the CPU as the classic
+    body takes them.  An operator that returns a plain block gets the dot
+    pass for ⟨p, A p⟩.  Other layouts, and an iteration with a stopped
+    lane, take the classic eager body.  `fused_iterations` and
+    `classic_iterations` count the two.
+
+    Returns (x, iterations [L] int32, residuals [L] float32), the last two
+    on the host."""
+    global fused_iterations, classic_iterations
     if b.dim() not in (2, 3) or row_dim not in (0, 1) or (b.dim() == 2 and row_dim != 0):
         raise ValueError(f"cg_solve_lanes: b must be [N, D] or 3-D with row_dim 0 or 1, "
                          f"got {tuple(b.shape)} and row_dim {row_dim}")
-    x = torch.zeros_like(b) if x0 is None else x0.reshape(b.shape).to(b.dtype)
     inv_M = None if M_diag is None else 1.0 / (M_diag + 1e-12)
 
     def precond(r):
@@ -185,6 +222,9 @@ def cg_solve_lanes(
     def col_sum(t):
         return torch.sum(t, dim=row_dim, keepdim=True)
 
+    def block(out):
+        return out[0] if isinstance(out, tuple) else out
+
     lane_shape = [1] * b.dim()
     if b.dim() == 3:
         lane_shape[1 - row_dim] = b.shape[1 - row_dim]
@@ -192,10 +232,21 @@ def cg_solve_lanes(
     tol32 = float(np.float32(tol))
     max_iters = int(max_iters)
 
-    r = b - A_mul(x)
-    z = precond(r)
-    p = z
-    rz = col_sum(r * z)
+    fused = _fused_layout(b, inv_M, row_dim)
+    if fused:
+        b = b.contiguous()
+        inv_rows = None if inv_M is None else inv_M.reshape(-1).contiguous()
+        rz_shape = (1,) + tuple(b.shape[1:])
+        x_owned = x0 is None  # x0's own buffer is never written
+        x = torch.zeros_like(b) if x0 is None else x0.reshape(b.shape).to(b.dtype).contiguous()
+        r, p, prz = cg_fused.residual(b, block(A_mul(x)), inv_rows)
+        rz = cg_fused.finish(prz)[0].view(rz_shape)
+    else:
+        x = torch.zeros_like(b) if x0 is None else x0.reshape(b.shape).to(b.dtype)
+        r = b - block(A_mul(x))
+        z = precond(r)
+        p = z
+        rz = col_sum(r * z)
     it = [0] * n_lanes
     res = [float("inf")] * n_lanes
     while True:
@@ -203,24 +254,37 @@ def cg_solve_lanes(
         active = [i == 0 or (i < max_iters and e > tol32) for i, e in zip(it, res)]
         if not any(active):
             break
-        Ap = A_mul(p)
-        denom = col_sum(p * Ap) + 1e-18
-        alpha = rz / denom
-        x_n = x + p * alpha
-        r_n = r - Ap * alpha
-        res_t = torch.amax(torch.linalg.vector_norm(r_n, dim=row_dim, keepdim=True), dim=-1)
-        z = precond(r_n)
-        rz_n = col_sum(r_n * z)
-        beta = rz_n / (rz + 1e-18)
-        p_n = z + p * beta
-        if all(active):
-            x, r, p, rz = x_n, r_n, p_n, rz_n
+        out = A_mul(p)
+        Ap = block(out)
+        if fused and all(active):
+            pap = out[1] if isinstance(out, tuple) else cg_fused.dot(p, Ap)
+            alpha = cg_fused.alpha(pap, rz.reshape(-1))
+            x_out = x if x_owned else torch.empty_like(b)
+            prz, prr = cg_fused.update(x, x_out, r, p, Ap, alpha, inv_rows)
+            x, x_owned = x_out, True
+            rz_n, beta, res_t = cg_fused.finish(prz, rz.reshape(-1), prr, n_lanes)
+            cg_fused.direction(p, r, beta, inv_rows)
+            rz = rz_n.view(rz_shape)
+            fused_iterations += 1
         else:
-            keep = torch.tensor(active, device=b.device).reshape(lane_shape)
-            x = torch.where(keep, x_n, x)
-            r = torch.where(keep, r_n, r)
-            p = torch.where(keep, p_n, p)
-            rz = torch.where(keep, rz_n, rz)
+            denom = col_sum(p * Ap) + 1e-18
+            alpha = rz / denom
+            x_n = x + p * alpha
+            r_n = r - Ap * alpha
+            res_t = torch.amax(torch.linalg.vector_norm(r_n, dim=row_dim, keepdim=True), dim=-1)
+            z = precond(r_n)
+            rz_n = col_sum(r_n * z)
+            beta = rz_n / (rz + 1e-18)
+            p_n = z + p * beta
+            if all(active):
+                x, r, p, rz = x_n, r_n, p_n, rz_n
+            else:
+                keep = torch.tensor(active, device=b.device).reshape(lane_shape)
+                x = torch.where(keep, x_n, x)
+                r = torch.where(keep, r_n, r)
+                p = torch.where(keep, p_n, p)
+                rz = torch.where(keep, rz_n, rz)
+            classic_iterations += 1
         with span("cg.wait"):
             res_h = res_t.reshape(-1).tolist()  # the one host read of the iteration
         res = [e_n if a else e for a, e_n, e in zip(active, res_h, res)]
