@@ -523,7 +523,10 @@ class OscillinkLattice:
         self.last_ustar: Optional[dict[str, Any]] = None
         self._last_ustar_from_cache = False
         # per-query iterations and residuals of the last batched U* solve and
-        # of the last diffusion-gate solve (lists for a batch)
+        # of the last diffusion-gate solve (lists for a batch); the batched
+        # solve's record adds its loop's trip count (``loop_iters``, the
+        # largest lane's) and how many of those trips ran the fused passes
+        # and the classic body (``fused``, ``classic``)
         self.last_ustar_batch: Optional[dict[str, Any]] = None
         self.last_gates: Optional[dict[str, Any]] = None
 
@@ -1439,14 +1442,21 @@ class OscillinkLattice:
                 raise ValueError("gates must be [Q, N]")
             gates_d = torch.from_numpy(np.array(gates, dtype=np.float32)).to(self.device)
         psis_d = torch.from_numpy(psis).to(self.device)
-        t0 = time.perf_counter()
-        Ustars, iters, res = solve_stationary_batch(
-            self._graph, self._Y_dev, psis_d, gates_d, self._lam(), tol=tol, max_iters=max_iters
-        )
+        fused0, classic0 = _solver.fused_iterations, _solver.classic_iterations
+        with span("lattice.ustar_batch"):
+            t0 = time.perf_counter()
+            Ustars, iters, res = solve_stationary_batch(
+                self._graph, self._Y_dev, psis_d, gates_d, self._lam(), tol=tol,
+                max_iters=max_iters
+            )
+            solve_ms = 1000.0 * (time.perf_counter() - t0)
         self.last_ustar_batch = {
-            "solve_ms": 1000.0 * (time.perf_counter() - t0),
+            "solve_ms": solve_ms,
             "iters": iters.tolist(),
             "res": res.tolist(),
+            "loop_iters": int(iters.max(initial=0)),
+            "fused": _solver.fused_iterations - fused0,
+            "classic": _solver.classic_iterations - classic0,
         }
         return Ustars, psis_d
 
@@ -1476,15 +1486,21 @@ class OscillinkLattice:
     ) -> list[list[dict]]:
         """MMR bundles for a batch of queries over the shared graph: per
         query, what `bundle` gives for that query and its gates."""
-        Ustars, psis_d = self._solve_batch_device(psis, gates, 1e-4, 64)
-        q = psis_d.shape[0]
-        k_eff = min(max(int(k), 1), self.N)
-        scores, aligns = bundle_scores_batch(
-            self._graph, self._Y_dev, Ustars, psis_d, self._lam().lamC, float(np.float32(alpha))
-        )
-        Yn = normalize_rows(self._Y_dev)
-        picks = torch.stack([mmr_select(Yn, scores[i], k_eff, lambda_div=0.5) for i in range(q)])
-        picks_h, scores_h, aligns_h = picks.tolist(), scores.cpu().numpy(), aligns.cpu().numpy()
+        with span("lattice.bundle_batch"):
+            Ustars, psis_d = self._solve_batch_device(psis, gates, 1e-4, 64)
+            q = psis_d.shape[0]
+            k_eff = min(max(int(k), 1), self.N)
+            with span("bundle.scores"):
+                scores, aligns = bundle_scores_batch(
+                    self._graph, self._Y_dev, Ustars, psis_d, self._lam().lamC,
+                    float(np.float32(alpha)),
+                )
+            with span("bundle.mmr"):
+                Yn = normalize_rows(self._Y_dev)
+                picks = torch.stack([mmr_select(Yn, scores[i], k_eff, lambda_div=0.5)
+                                     for i in range(q)])
+                picks_h = picks.tolist()
+                scores_h, aligns_h = scores.cpu().numpy(), aligns.cpu().numpy()
         return [
             [{"id": int(i), "score": float(scores_h[qi, i]), "align": float(aligns_h[qi, i])}
              for i in picks_h[qi]]

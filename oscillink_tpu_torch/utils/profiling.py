@@ -38,14 +38,18 @@ from .device import DeviceLike
 __all__ = ["trace", "time_fn", "device_memory_stats", "span", "recording", "SpanRecorder",
            "Span", "SPANS", "SPAN_CAPACITY"]
 
-# The program's span names, by layer.  `lattice.ustar` and `lattice.settle`
-# cover the intervals of ``last_ustar["solve_ms"]`` and ``last["t_ms"]``;
-# `cg.wait` is each CG iteration's one host read of its residual;
-# `lattice.graph` is a lattice's graph build, the IVF stages under it.
+# The program's span names, by layer.  `lattice.ustar`, `lattice.settle`
+# and `lattice.ustar_batch` cover the intervals of
+# ``last_ustar["solve_ms"]``, ``last["t_ms"]`` and
+# ``last_ustar_batch["solve_ms"]``; `bundle.scores` and `bundle.mmr` sit
+# under `lattice.bundle` and `lattice.bundle_batch` alike; `cg.wait` is
+# each CG iteration's one host read of its residual; `lattice.graph` is a
+# lattice's graph build, the IVF stages under it.
 SPANS = (
     "lattice.set_query", "lattice.signature", "lattice.ustar", "lattice.settle",
     "lattice.receipt", "receipt.energy", "receipt.nulls",
     "lattice.bundle", "bundle.scores", "bundle.mmr",
+    "lattice.bundle_batch", "lattice.ustar_batch",
     "lattice.graph", "ivf.pregate", "ivf.kmeans", "ivf.scan", "ivf.quality",
     "cg.wait",
     "service.request", "service.decode", "service.validate", "service.arrays",

@@ -24,6 +24,7 @@ from oscillink_tpu_torch.utils.profiling import SPAN_CAPACITY, SPANS, recording,
 LATTICE_SPANS = {"lattice.set_query", "lattice.signature", "lattice.ustar", "lattice.settle",
                  "lattice.receipt", "receipt.energy", "receipt.nulls", "lattice.bundle",
                  "bundle.scores", "bundle.mmr", "cg.wait"}
+BATCH_SPANS = {"lattice.bundle_batch", "lattice.ustar_batch"}
 GRAPH_SPANS = {"lattice.graph", "ivf.pregate", "ivf.kmeans", "ivf.scan", "ivf.quality"}
 SERVICE_SPANS = {"service.request", "service.decode", "service.validate", "service.arrays",
                  "service.build", "service.settle", "service.bundle"}
@@ -52,7 +53,7 @@ def _by_name(spans):
 
 
 def test_span_names_are_the_tables():
-    assert set(SPANS) == LATTICE_SPANS | GRAPH_SPANS | SERVICE_SPANS
+    assert set(SPANS) == LATTICE_SPANS | BATCH_SPANS | GRAPH_SPANS | SERVICE_SPANS
     assert len(SPANS) == len(set(SPANS))
 
 
