@@ -4,9 +4,9 @@
 
 Builds kernels K1 (``oscillink_tpu_torch/csrc/spmv.cu``), K2, K3 and K4
 (``csrc/window_spmv3f.cu``, three variants of one gather kernel), K5
-(``csrc/bucket_gather.cu``) and the CG's fused passes
-(``csrc/cg_fused.cu``) from the checkout, one ``nvcc`` per source, all
-started together, and holds each against its plain PyTorch version (K1
+(``csrc/bucket_gather.cu``), the CG's fused passes
+(``csrc/cg_fused.cu``) and the edge distances (``csrc/edge_dists.cu``)
+from the checkout, one ``nvcc`` per source, all started together, and holds each against its plain PyTorch version (K1
 also bit-equal from launch to launch and across forced column-slab widths,
 and its slab widths swept and timed in turns at the corpus shape, at
 262144 and 524288 rows and at 1M rows of 768, 192 and 96 columns; K2-K4
@@ -136,6 +136,19 @@ through the public entry points:
   a settle step twice, bit-equal, 3 + 6 launches an iteration, no classic
   iteration, the classic body's iterations and U within 1e-6.
 
+* the edge distances (``csrc/edge_dists.cu``, ``edge_dists``): held to
+  their plain version (within 1e-6 of each edge; scaled and not; at the
+  plan's slab width and at 32 columns; bit-equal on a second launch) at
+  1000 x 768 x k6, 5000 x 768 x k8, 4099 x 97 x k13, 3001 x 3 x k5 and
+  the corpus cells' 171332 and 522931 x 768 x k8 on random graphs; a lane
+  view of an [N, 8, D] block equal to its contiguous copy; one launch
+  counted a call; timed against their byte bound beside the plain
+  version, each call's peak allocation within the working-set model's
+  term for it (``edge_dists.scratch_bytes``); their launches counted on
+  the corpus flow (3 a full receipt, 2 a bundle, 1 a chain receipt, none
+  a light receipt) and on the batch paths (2 a lane of ``bundle_batch``,
+  2 a single bundle).
+
 Each path runs with every launch count set to 0 just before it and read just
 after.  Every check that fails raises, so the script exits non-zero; it
 never falls back to the CPU.  Without CUDA it exits 1 before printing any
@@ -191,10 +204,10 @@ from oscillink_tpu_torch.ops.graph import build_graph, graph_from_topk, lap_matv
 from oscillink_tpu_torch.ops import solver as tsolver
 from oscillink_tpu_torch.ops.kernels import bucket_gather as bg
 from oscillink_tpu_torch.ops.kernels import cg_fused
+from oscillink_tpu_torch.ops.kernels import edge_dists
 from oscillink_tpu_torch.ops.kernels import build as kbuild
 from oscillink_tpu_torch.ops.kernels import spmv
 from oscillink_tpu_torch.ops.kernels import window_spmv as tw
-from oscillink_tpu_torch.ops import receipts as treceipts
 from oscillink_tpu_torch.ops.path import build_path_graph
 from oscillink_tpu_torch.ops.receipts import deltaH_tree_np
 from oscillink_tpu_torch import parallel as tpar
@@ -357,6 +370,23 @@ CG_LANES = (3, 768)
 CG_LAMS = (1.0, 0.5, 4.0)  # λ_G, λ_C, λ_Q of the twins' checks
 CG_ULPS = 1  # column sums, kernel vs torch's f64 sums: two f64 orders, one rounding to f32
 CG_FORM_TOL = 1e-6  # U, fused vs classic body: relative to max|U|
+# the edge distances (csrc/edge_dists.cu): timed at the two corpus cells'
+# shapes (trec_covid, beir_quora), checked there and at a service request's,
+# the headline's, a ragged width past one group of 8 slots and D = 3; on
+# graphs of uniformly random neighbours (an unordered corpus's kNN graph has
+# no locality either); the batch cell's lane view of an [N, 8, D] block
+ED_TIMED = (dict(n=171332, d=768, k=8), dict(n=522931, d=768, k=8))
+ED_CHECKED = (dict(n=1000, d=768, k=6), dict(n=5000, d=768, k=8), dict(n=4099, d=97, k=13),
+              dict(n=3001, d=3, k=5))
+ED_LANES = 8
+# edge-distance calls a step makes: the bundle's coherence drop (Y and U*);
+# the full receipt's energy (its coherence drop) and null points (U* alone);
+# the chain receipt's residuals; the light receipt reads none
+ED_PER_BUNDLE = 2
+ED_CORPUS_FLOW = {"light_flow": 0, "receipt_full": 3, "bundle": ED_PER_BUNDLE,
+                  "chain_receipt": 1}
+ALLOC_SLACK_BYTES = 2 << 20  # two blocks' rounding by the caching allocator
+ED_RTOL = 1e-6  # kernel vs plain, each edge: two f32 orders of one sum of positive terms
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
@@ -483,14 +513,8 @@ def headline_parity(Y, psi, k: int) -> dict:
     """The headline cell on the card against the port on the CPU.  N = 5000
     takes the blocked graph build, so the card's top-k tie order (stable_topk
     on CUDA torch.topk / torch.sort) is held to the CPU's; the card's full
-    receipt runs the row-blocked edge distances (budget lowered for this
-    pass), the CPU's the direct ones."""
-    saved = treceipts._EDGE_TEMP_BUDGET_BYTES, treceipts._EDGE_BLOCK_ROWS
-    treceipts._EDGE_TEMP_BUDGET_BYTES, treceipts._EDGE_BLOCK_ROWS = 0, 1024
-    try:
-        gpu = headline_flow(Y, psi, k, "cuda")
-    finally:
-        treceipts._EDGE_TEMP_BUDGET_BYTES, treceipts._EDGE_BLOCK_ROWS = saved
+    receipt runs the edge-distance kernel, the CPU's its plain version."""
+    gpu = headline_flow(Y, psi, k, "cuda")
     cpu = headline_flow(Y, psi, k, "cpu")
     rel = abs(gpu["deltaH"] - cpu["deltaH"]) / max(abs(cpu["deltaH"]), 1e-30)
     check(torch.equal(gpu["idx"], cpu["idx"]), "headline graph idx: cuda != cpu")
@@ -696,13 +720,14 @@ def time_kernel(shape: dict, case: dict) -> dict:
 def reset_counts() -> None:
     spmv.launches = 0
     bg.launches = 0
+    edge_dists.launches = 0
     for _, _, fn, _ in WINDOW_KERNELS:
         fn.launches = 0
 
 
 def read_counts() -> dict:
     return {"K1": spmv.launches, **{name: fn.launches for name, _, fn, _ in WINDOW_KERNELS},
-            "K5": bg.launches}
+            "K5": bg.launches, "edge_dists": edge_dists.launches}
 
 
 def bench_graph(n: int, k: int, seed: int = 0):
@@ -1536,7 +1561,9 @@ def batched_parity() -> dict:
     check(bundles == cpu_bundles, "batched bundle ids: cuda != cpu")
     check(counts["K1"] == 2 * (1 + max(iters)),
           f"K1 launches {counts['K1']} != 2 solves x (1 + {max(iters)})")
-    return {"launches": counts["K1"], "iters": iters}
+    check(counts["edge_dists"] == ED_PER_BUNDLE * q,
+          f"edge_dists launches in bundle_batch {counts['edge_dists']} != {ED_PER_BUNDLE} x {q}")
+    return {"launches": counts["K1"], "iters": iters, "edge_dists": counts["edge_dists"]}
 
 
 def batched_corpus() -> dict:
@@ -1574,6 +1601,7 @@ def batched_corpus() -> dict:
     bundles = [[b["id"] for b in qb] for qb in lat.bundle_batch(psis, G, k=8)]
     t["bundle_ms"] = sync_ms(t0)
     launches["bundle"] = read_counts()["K1"]
+    ed_launches = {"bundle_batch": edge_dists.launches, "bundle": []}
     bundle_iters = lat.last_ustar_batch["iters"]
     check(U.shape == (BATCH_Q, n, d) and bool(np.isfinite(U).all()), "corpus batch U* invalid")
     # the single-query path, one query at a time
@@ -1582,7 +1610,9 @@ def batched_corpus() -> dict:
         t0 = time.perf_counter()
         lat.set_query(psis[qi], gates=G[qi])
         Uq = lat._solve_ustar_device()
+        before = edge_dists.launches
         ids = [b["id"] for b in lat.bundle(k=8)]
+        ed_launches["bundle"].append(edge_dists.launches - before)
         single_ms.append(sync_ms(t0))
         single_iters.append(lat.last_ustar["iters"])
         errs.append(float((torch.from_numpy(U[qi]).cuda() - Uq).abs().max() / Uq.abs().max()))
@@ -1614,8 +1644,8 @@ def batched_corpus() -> dict:
          single_ms_per_query=statistics.mean(single_ms), max_memory_allocated_bytes=peak,
          iters=iters, single_iters=single_iters, gate_iters=gate_iters,
          single_gate_iters=single_gate_iters, cpu_gate_iters=cpu_gate_iters, launches=launches,
-         U_rel_err=errs, gates_cuda_vs_cpu=gate_err, gates_batch_vs_single=lane_errs,
-         bundle_ids=bundles)
+         edge_dists_launches=ed_launches, U_rel_err=errs, gates_cuda_vs_cpu=gate_err,
+         gates_batch_vs_single=lane_errs, bundle_ids=bundles)
     check(iters == single_iters, f"corpus batch iterations {iters} != single {single_iters}")
     check(bundle_iters == iters, f"bundle_batch iterations {bundle_iters} != U* batch {iters}")
     check(max(errs) <= LANE_TOL, f"corpus batch U* vs single: {max(errs)}")
@@ -1627,6 +1657,10 @@ def batched_corpus() -> dict:
           f"K1 launches in the batched U* {launches['ustar']} != 1 + {max(iters)}")
     check(launches["bundle"] == 1 + max(iters),
           f"K1 launches in bundle_batch {launches['bundle']} != 1 + {max(iters)}")
+    check(ed_launches["bundle_batch"] == ED_PER_BUNDLE * BATCH_Q
+          and ed_launches["bundle"] == [ED_PER_BUNDLE] * BATCH_Q,
+          f"edge_dists launches {ed_launches}: {ED_PER_BUNDLE} a bundle, "
+          f"{ED_PER_BUNDLE} x {BATCH_Q} a bundle_batch")
     check(gate_launches == [1 + it for it in single_gate_iters],
           f"K1 launches in the single gate solves {gate_launches} != 1 + {single_gate_iters}")
     check(cpu_gate_iters == single_gate_iters[0],
@@ -1640,7 +1674,7 @@ def batched_corpus() -> dict:
     row = k1_case({"graph": "corpus", "queries": BATCH_Q}, lat.graph, X)
     del lat, X
     torch.cuda.empty_cache()
-    return {"launches": launches, "k1_row": row, "ms": t}
+    return {"launches": launches, "edge_dists": ed_launches, "k1_row": row, "ms": t}
 
 
 def diffusion_standalone() -> dict:
@@ -4358,6 +4392,128 @@ def cg_fused_phase() -> dict:
     return {"rows": rows, "flow": flow}
 
 
+def edge_case(n: int, d: int, k: int, seed: int) -> tuple:
+    """idx [n, k] int32 of uniformly random neighbours, X [n, d] and a row
+    scale in [0.5, 1.5), on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((n, d), generator=gen, device="cuda")
+    idx = torch.randint(0, n, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+    return idx, X, 0.5 + torch.rand(n, generator=gen, device="cuda")
+
+
+def edge_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest per-edge relative distance between two [N, K] results."""
+    return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+def edge_checks(idx, X, scale, tag: str) -> dict:
+    """The kernel against the plain version, scaled and not, at the plan's
+    slab width and at 32 columns: within `ED_RTOL` of it, and bit-equal on a
+    second launch.  At up to 5000 rows, both against float64 sums of the
+    same rounded terms too (read, not held)."""
+    out = {}
+    for name, s in (("scaled", scale), ("unscaled", None)):
+        ref = edge_dists.edge_sq_dists_ref(idx, X, s)
+        f64 = None
+        if X.shape[0] <= 5000:
+            Xs = X if s is None else X * s[:, None]
+            diff = Xs[:, None, :] - Xs[idx.long()]
+            f64 = (diff * diff).double().sum(-1)
+            del Xs, diff
+        for slab in (None, min(32, X.shape[1])):
+            got = edge_dists.edge_sq_dists_cuda(idx, X, s, slab_cols=slab)
+            again = edge_dists.edge_sq_dists_cuda(idx, X, s, slab_cols=slab)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"edge_dists {tag} {name} slab {slab}: run to run")
+            rel = edge_rel(got, ref)
+            check(rel <= ED_RTOL, f"edge_dists {tag} {name} slab {slab}: {rel} vs plain")
+            key = f"{name}_slab{slab or 'plan'}"
+            out[key] = {"rel_vs_plain": rel}
+            if f64 is not None:
+                out[key].update(rel_vs_f64=edge_rel(got.double(), f64),
+                                plain_rel_vs_f64=edge_rel(ref.double(), f64))
+        del ref, f64
+    return out
+
+
+def edge_peak(fn) -> int:
+    """Bytes ``fn`` allocated at its peak above what was allocated before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def edge_timing(idx, X, scale) -> dict:
+    """The kernel's CUDA-event time (scaled, as the receipts call it) against
+    its byte bound (X once, idx, the scale and out: (N*D + 2*N*K + N)*4 B
+    over `HBM_BYTES_PER_S`) and the bound with its slabs' partials written
+    and read; the plain version's time; each call's peak above its inputs."""
+    n, d = X.shape
+    k = idx.shape[1]
+    slab = spmv.slab_plan(n, d, k, spmv.device_l2_bytes(0))
+    slabs = -(-d // slab)
+    bound = (n * d + 2 * n * k + n) * 4 / HBM_BYTES_PER_S * 1e3
+    partials = (2 * slabs * n * k * 4 if slabs > 1 else 0) / HBM_BYTES_PER_S * 1e3
+    kern = lambda: edge_dists.edge_sq_dists_cuda(idx, X, scale)  # noqa: E731
+    plain = lambda: edge_dists.edge_sq_dists_ref(idx, X, scale)  # noqa: E731
+    ms = cuda_ms(kern, 20)
+    peak = edge_peak(kern)
+    # the working-set model's term; the caching allocator rounds each of
+    # the two blocks up to 512 bytes and leaves a large block's remainder
+    # of up to 1 MiB unsplit
+    check(peak <= edge_dists.scratch_bytes(n, d, k) + ALLOC_SLACK_BYTES,
+          f"edge_dists at [{n}, {d}] k{k}: peak {peak} B over its scratch "
+          f"{edge_dists.scratch_bytes(n, d, k)} B")
+    return {"ms": ms, "unscaled_ms": cuda_ms(lambda: edge_dists.edge_sq_dists_cuda(idx, X), 20),
+            "bound_ms": bound, "bound_by": "bytes", "roofline_pct": 100 * bound / ms,
+            "bound_with_partials_ms": bound + partials,
+            "roofline_with_partials_pct": 100 * (bound + partials) / ms,
+            "plain_ms": cuda_ms(plain, 3), "library_ms": None, "slab_cols": slab,
+            "slabs": slabs, "peak_bytes": peak, "scratch_bytes": edge_dists.scratch_bytes(n, d, k),
+            "plain_peak_bytes": edge_peak(plain)}
+
+
+def edge_dists_phase() -> dict:
+    """The edge-distance kernel held to its plain version at `ED_CHECKED`
+    and `ED_TIMED`, a lane view of an [N, `ED_LANES`, D] block held to its
+    contiguous copy at the first timed shape, one launch counted a call,
+    and the timed shapes against their byte bounds."""
+    t0 = time.perf_counter()
+    rows = []
+    for i, shape in enumerate(ED_CHECKED + ED_TIMED):
+        idx, X, scale = edge_case(shape["n"], shape["d"], shape["k"], seed=200 + i)
+        tag = f"[{shape['n']}, {shape['d']}] k{shape['k']}"
+        row = {**shape, "checks": edge_checks(idx, X, scale, tag)}
+        if shape in ED_TIMED:
+            row["timing"] = edge_timing(idx, X, scale)
+        if shape is ED_TIMED[0]:
+            block = torch.stack([X] * ED_LANES, dim=1)
+            block[:, 0] *= 0.5
+            lane = block[:, ED_LANES // 2]
+            got = edge_dists.edge_sq_dists_cuda(idx, lane, scale)
+            check(torch.equal(got, edge_dists.edge_sq_dists_cuda(idx, lane.contiguous(), scale)),
+                  f"edge_dists {tag}: a lane view != its contiguous copy")
+            row["lane_view"] = {"lanes": ED_LANES, "row_stride": lane.stride(0),
+                                "ms": cuda_ms(lambda: edge_dists.edge_sq_dists_cuda(
+                                    idx, lane, scale), 20)}
+            del block, lane, got
+            before = edge_dists.launches
+            edge_dists.edge_sq_dists_cuda(idx, X, scale)
+            check(edge_dists.launches == before + 1, "edge_dists: one launch count a call")
+        del idx, X, scale
+        torch.cuda.empty_cache()
+        rows.append(row)
+        emit("edge_dists_vs_plain", **row)
+    return {"rows": rows, "phase_s": time.perf_counter() - t0,
+            "max_rel_vs_plain": max(c["rel_vs_plain"] for row in rows
+                                    for c in row["checks"].values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -4372,7 +4528,7 @@ def main() -> int:
 
     # 1. build K1, K2-K4, K5 and the CG's fused passes from the checkout's
     # sources, one nvcc per source, all started together
-    sources = ("spmv", "window_spmv3f", "bucket_gather", "cg_fused")
+    sources = ("spmv", "window_spmv3f", "bucket_gather", "cg_fused", "edge_dists")
     t0 = time.perf_counter()
     kbuild.build(list(sources))
     build_s = time.perf_counter() - t0
@@ -4468,13 +4624,17 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t, lat, settle_launches = flow_pass(Y, psi, CORPUS["k"])
+    ed_flow = {"light_flow": edge_dists.launches}
     t0 = time.perf_counter()
     lat.set_receipt_detail("full")
     rec = lat.receipt()
     t["receipt_full_ms"] = sync_ms(t0)
+    ed_flow["receipt_full"] = edge_dists.launches - sum(ed_flow.values())
     t0 = time.perf_counter()
     bundle = lat.bundle(k=8)
+    ed_flow["bundle"] = edge_dists.launches - sum(ed_flow.values())
     chain = lat.chain_receipt([2, 5, 7, 9])
+    ed_flow["chain_receipt"] = edge_dists.launches - sum(ed_flow.values())
     t["bundle_chain_ms"] = sync_ms(t0)
     counts = read_counts()
     launches = counts["K1"]
@@ -4487,6 +4647,7 @@ def main() -> int:
     emit("corpus", **CORPUS, passes=len(passes), **medians(passes), last_pass=t,
          settle_iters=settle_it, ustar_iters=ustar_it, spmv_launches=launches,
          operator_applies=applies, settle_launches=settle_launches, launches=counts,
+         edge_dists_launches=ed_flow,
          host_syncs_per_settle=settle_it,
          max_memory_allocated_bytes=peak, deltaH=rec["deltaH_total"],
          null_points=len(rec["null_points"]), bundle_ids=[b["id"] for b in bundle],
@@ -4498,11 +4659,16 @@ def main() -> int:
     check(U.shape == (CORPUS["n"], CORPUS["d"]) and bool(np.isfinite(U).all()), "U not finite")
     check(np.isfinite(rec["deltaH_total"]) and rec["deltaH_total"] >= 0, "deltaH invalid")
     check(len(bundle) == 8 and len({b["id"] for b in bundle}) == 8, "bundle ids invalid")
+    check(ed_flow == ED_CORPUS_FLOW,
+          f"edge_dists launches on the corpus flow {ed_flow} != {ED_CORPUS_FLOW}")
 
     # 6a. the CG's fused passes against their twins at the corpus cells'
     # shapes, timed against their bounds; the corpus flow through them
     cg = cg_fused_phase()
     torch.cuda.empty_cache()
+    # 6a'. the edge distances against their plain version, timed at the
+    # corpus cells' shapes against their byte bounds
+    ed = edge_dists_phase()
 
     # 6b. the CLI at the corpus tier (and as a module in fresh processes),
     # torch.profiler around a corpus settle, text ingestion on synth3k
@@ -4528,7 +4694,8 @@ def main() -> int:
     # counted from 0: the batched lattice (card vs CPU), the /v1/bundle batch
     # path at the corpus tier, standalone diffusion gates, ragged bundles,
     # the one-shot light receipt
-    serving = {"batched_parity": batched_parity()["launches"]}
+    parity_batch = batched_parity()
+    serving = {"batched_parity": parity_batch["launches"]}
     corpus_batch = batched_corpus()
     serving.update({f"batched_corpus_{key}": val for key, val in corpus_batch["launches"].items()})
     diff = diffusion_standalone()
@@ -4699,7 +4866,21 @@ def main() -> int:
         "bit_equal": True,
         "per_shape": {f"{row['n']}x{row['d']}": row["timing"][name]
                       for row in cg["rows"] if "timing" in row},
-    } for name in ("combine", "dot", "residual", "update", "direction", "alpha", "finish")]}),
+    } for name in ("combine", "dot", "residual", "update", "direction", "alpha", "finish")] + [{
+        "name": "edge_dists",
+        "route": "cuda",
+        "source": "oscillink_tpu_torch/csrc/edge_dists.cu",
+        "replaces": "none (XLA fused oscillink_tpu/ops/receipts.py _edge_sq_dists)",
+        "launches": sum(ed_flow.values()),
+        "launches_corpus_flow": ed_flow,
+        "launches_batch": {"batched_parity": parity_batch["edge_dists"],
+                           "batched_corpus": corpus_batch["edge_dists"]},
+        "max_rel_vs_plain": ed["max_rel_vs_plain"],
+        "bit_equal_repeat": True,
+        "per_shape": {f"{row['n']}x{row['d']}x{row['k']}": row["timing"]
+                      for row in ed["rows"] if "timing" in row},
+        "ptxas": libs["edge_dists"]["ptxas"],
+    }]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

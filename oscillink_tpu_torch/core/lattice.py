@@ -84,7 +84,7 @@ import torch
 
 from ..models.batched import bundle_scores_batch, solve_stationary_batch
 from ..models import coherence as _coh
-from ..ops import receipts as _receipts
+from ..ops.kernels import edge_dists as _edge_dists
 from ..ops import solver as _solver
 from ..models.coherence import (
     EnergyParams,
@@ -169,9 +169,8 @@ _CHECKPOINT_FORMAT = "oscillink_tpu_torch-checkpoint-1"
 #     131072 x 768: fused settle 12.029 and U* 10.025 full width;
 #     chunked settle 13.03 (c = 2, unfused; 1 + live/2 = 7.517) and
 #     13.57 (c = 8, K2 and its epilogue; 2.696)                       -> 14.5
-# The full receipt's edge distances (`ops/receipts.py` `_edge_sq_dists`)
-# hold up to three [rows, K, D] temporaries besides: they set the chunked
-# receipt's peak at 131072 (1.609 blocks at c = 8).
+# The full receipt's edge distances hold the kernel's output and slab
+# partials besides (`edge_dists.scratch_bytes`).
 _LIVE_BLOCKS = {
     ("settle", "classic"): 10.1,
     ("settle", "lowmem"): 4.1,
@@ -230,19 +229,10 @@ def working_set_bytes(
     else:
         live = _LIVE_BLOCKS[(route, None)]
     if route == "receipt":
-        return est + max(live * chunk, _edge_temp_bytes(n, d, k))
+        return est + max(live * chunk, _edge_dists.scratch_bytes(n, d, k))
     if col_chunks > 1:
         est += _ACCUMULATOR_BLOCKS[route] * block + _CHUNK_COPIES[route] * chunk
     return est + live * chunk
-
-
-def _edge_temp_bytes(n: int, d: int, k: int) -> int:
-    """The edge distances' temporaries: three [rows, K, D] f32 tensors, all
-    N rows on the direct path, `_EDGE_BLOCK_ROWS` when row-blocked."""
-    direct = 4 * n * k * d
-    if direct <= _receipts._EDGE_TEMP_BUDGET_BYTES or n <= _receipts._EDGE_BLOCK_ROWS:
-        return 3 * direct
-    return 3 * 4 * _receipts._EDGE_BLOCK_ROWS * k * d
 
 
 def auto_col_chunks(n: int, d: int, k: int, capacity: int, routes: list[tuple[str, int]]) -> int:

@@ -27,6 +27,7 @@ import torch
 
 from ..models.coherence import EnergyParams, stationary_matvec
 from .graph import Graph, stable_topk
+from .kernels import edge_dists
 from .path import PathGraph
 
 __all__ = [
@@ -61,40 +62,20 @@ def _deg_normalized(g: Graph, X: torch.Tensor) -> torch.Tensor:
     return X / (g.sqrt_deg[:, None] + 1e-12)
 
 
-# direct-path budget for the [N, K, D] gathered-neighbor temp; above it the
-# edge distances are computed in row blocks (131072 x 8 x 768 f32 is 3.2 GB
-# direct, 201 MB per 8192-row block)
-_EDGE_TEMP_BUDGET_BYTES = 1 << 30
-_EDGE_BLOCK_ROWS = 8192
-
-
 def _edge_sq_dists(
     g: Graph, X: torch.Tensor, inv_row_scale: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """[N, K] squared distances ||s_i X_i - s_j X_j||^2 along graph edges,
-    with optional per-row scaling s = ``inv_row_scale``.  Row-blocked above
-    the temp budget; the scaling is applied inside each block, so both
-    regimes compute the same f32 values."""
-    n, d = X.shape
-    k = g.idx.shape[1]
-    idx = g.idx.long()
-    if 4 * n * k * d <= _EDGE_TEMP_BUDGET_BYTES or n <= _EDGE_BLOCK_ROWS:
-        Xn = X if inv_row_scale is None else X * inv_row_scale[:, None]
-        diff = Xn[:, None, :] - Xn[idx]
-        return torch.sum(diff * diff, dim=-1).to(torch.float32)
+    with optional per-row scaling s = ``inv_row_scale``.
 
-    out = torch.empty((n, k), dtype=torch.float32, device=X.device)
-    for r0 in range(0, n, _EDGE_BLOCK_ROWS):
-        r1 = min(r0 + _EDGE_BLOCK_ROWS, n)
-        ib = idx[r0:r1]
-        xb = X[r0:r1]
-        xg = X[ib]
-        if inv_row_scale is not None:
-            xb = xb * inv_row_scale[r0:r1, None]
-            xg = xg * inv_row_scale[ib][:, :, None]
-        diff = xb[:, None, :] - xg
-        out[r0:r1] = torch.sum(diff * diff, dim=-1)
-    return out
+    A CUDA tensor goes through the edge-distance kernel
+    (`ops/kernels/edge_dists.py`; it launches or raises); a CPU tensor
+    through its plain version."""
+    if X.device.type == "cuda":
+        return edge_dists.edge_sq_dists_cuda(g.idx, X, inv_row_scale)
+    if X.device.type == "cpu":
+        return edge_dists.edge_sq_dists_ref(g.idx, X, inv_row_scale)
+    raise ValueError(f"_edge_sq_dists: unsupported device {X.device}")
 
 
 def _inv_sqrt_deg(g: Graph) -> torch.Tensor:
@@ -143,8 +124,8 @@ def receipt_full_chunked(
     the columns in ``col_chunks`` slices (port of the JAX lattice's
     ``_jit_receipt_full_chunked``).  Each slice's operator apply is one
     `stationary_matvec` at width D/c (kernel K1 on the card, plus the chain
-    term); the coherence drop stays full width on the row-blocked edge
-    distances.  ``col_chunks`` must divide D."""
+    term); the coherence drop stays full width on the edge distances
+    (`_edge_sq_dists`).  ``col_chunks`` must divide D."""
     n, d = U.shape
     if d % col_chunks != 0:
         raise ValueError(f"D={d} must divide col_chunks={col_chunks}")

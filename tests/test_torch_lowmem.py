@@ -256,8 +256,8 @@ def test_lowmem_bytes_where_the_classic_form_leaves_the_card():
 
 def test_working_set_model_terms():
     """The model's terms: resident blocks, the form `_pick_cg` gives the
-    chunk width, a solve's accumulator, and the receipt's edge
-    temporaries."""
+    chunk width, a solve's accumulator, and the receipt's edge-distance
+    scratch (the kernel's output and its 24 slabs' partials at D = 768)."""
     n, d, k = 1_000_000, 768, 8
     block = n * d * 4
     base = 3 * block + n * (12 * k + 4) + tlat._SMALL_BYTES
@@ -268,9 +268,11 @@ def test_working_set_model_terms():
     block3 = 3_000_000 * d * 4
     assert lowmem == (2 * block3 + 3_000_000 * 100 + tlat._SMALL_BYTES
                       + 2 * tsolver.ROW_BLOCK_BYTES + 3.1 * block3)
-    # small N: the direct edge distances' [N, K, D] temporaries dominate
+    # the edge distances' scratch, 25 [N, K] f32 blocks, stays below the
+    # receipt's live blocks at small N; at c = 16 it passes one chunk's 4.1
     assert tlat.working_set_bytes(4096, d, k, "receipt", 3) == (
-        3 * 4096 * d * 4 + 4096 * 100 + tlat._SMALL_BYTES + 3 * 4 * 4096 * k * d)
+        3 * 4096 * d * 4 + 4096 * 100 + tlat._SMALL_BYTES + 4.1 * 4096 * d * 4)
+    assert tlat.working_set_bytes(n, d, k, "receipt", 3, 16) == base + 25 * 4 * n * k
 
 
 @pytest.mark.parametrize("route,donated,live", [

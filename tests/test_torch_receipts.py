@@ -22,6 +22,7 @@ from oscillink_tpu.ops.path import build_path_graph as jbuild_path  # noqa: E402
 from oscillink_tpu_torch import interop  # noqa: E402
 from oscillink_tpu_torch.core import receipts as tsign  # noqa: E402
 from oscillink_tpu_torch.ops import receipts as trec  # noqa: E402
+from oscillink_tpu_torch.ops.kernels import edge_dists  # noqa: E402
 
 LAMS = (1.0, 0.5, 4.0, 0.3)
 
@@ -135,15 +136,24 @@ def test_dynamics_core_matches_jax(st):
     np.testing.assert_array_equal(fj.numpy(), np.asarray(oj[5]))
 
 
+@pytest.fixture(scope="module")
+def st_ragged():
+    # D not a multiple of 4, N not a multiple of the block, padded slots
+    return _state(n=333, d=37, k=5, seed=1, chain=(3, 8, 2))
+
+
+@pytest.mark.parametrize("state", ["st", "st_ragged"])
 @pytest.mark.parametrize("scaled", [False, True])
-def test_edge_sq_dists_blocked_equals_direct(st, monkeypatch, scaled):
+def test_edge_sq_dists_blocked_equals_direct(request, monkeypatch, scaled, state):
+    st = request.getfixturevalue(state)
     X = _t(st["Us"])
     inv = trec._inv_sqrt_deg(st["gt"]) if scaled else None
     direct = trec._edge_sq_dists(st["gt"], X, inv)
-    monkeypatch.setattr(trec, "_EDGE_TEMP_BUDGET_BYTES", 1024)
-    monkeypatch.setattr(trec, "_EDGE_BLOCK_ROWS", 64)  # 500 rows: 8 blocks, ragged tail
+    monkeypatch.setattr(edge_dists, "TEMP_BUDGET_BYTES", 1024)
+    monkeypatch.setattr(edge_dists, "BLOCK_ROWS", 64)  # 500 / 333 rows: ragged tail
     blocked = trec._edge_sq_dists(st["gt"], X, inv)
     np.testing.assert_array_equal(blocked.numpy(), direct.numpy())
+    assert bool((st["gt"].w == 0).any())  # zero-weight padded slots are measured too
     dj = jrec._edge_sq_dists(st["gj"], _j(st["Us"]), None if inv is None else _j(inv.numpy()))
     _close(direct.numpy(), dj, rtol=1e-5, atol=1e-5)
 
