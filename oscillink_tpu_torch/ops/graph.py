@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .kernels import spmv
 
 __all__ = [
@@ -52,6 +53,13 @@ DENSE_TOPK_LIMIT = 4096
 FAST_SIMILARITY_N = 65536
 CLUSTER_SIMILARITY_N = 500_000
 SIMILARITY_RECALL = {"exact": 1.0, "fast": 0.99, "fastest": 0.95, "cluster": 0.9}
+
+topk_routes = {"dense": 0, "blocked": 0, "blocked_fast": 0}
+"""`build_graph`'s top-k scans since the counts were last reset, by route:
+the one [N, N] product of `_topk_dense`, or the row blocks of
+`_topk_blocked` (exact) or `_topk_blocked_fast` (bf16 scan, f32 rescore).
+The mesh's `parallel/sharded_build.py` calls the blocked scans itself and
+is not counted."""
 
 # candidates fetched past k by `stable_topk`; a row whose last candidate
 # still ties the k-th value is re-ranked by a full stable sort
@@ -248,12 +256,16 @@ def build_graph(
     if similarity not in ("exact", "fast", "fastest"):
         raise ValueError(f"unknown similarity mode {similarity!r}")
     Yn = normalize_rows(Y.to(torch.float32))
-    if jitter is not None or n <= dense_limit:
-        vals, idx = _topk_dense(Yn, k, jitter)
-    elif similarity == "exact":
-        vals, idx = _topk_blocked(Yn, k, block_rows)
-    else:
-        vals, idx = _topk_blocked_fast(Yn, k, block_rows)
+    with span("graph.topk"):
+        if jitter is not None or n <= dense_limit:
+            topk_routes["dense"] += 1
+            vals, idx = _topk_dense(Yn, k, jitter)
+        elif similarity == "exact":
+            topk_routes["blocked"] += 1
+            vals, idx = _topk_blocked(Yn, k, block_rows)
+        else:
+            topk_routes["blocked_fast"] += 1
+            vals, idx = _topk_blocked_fast(Yn, k, block_rows)
     return graph_from_topk(vals, idx, row_cap=row_cap)
 
 

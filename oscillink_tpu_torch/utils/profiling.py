@@ -44,13 +44,14 @@ __all__ = ["trace", "time_fn", "device_memory_stats", "span", "recording", "Span
 # ``last_ustar_batch["solve_ms"]``; `bundle.scores` and `bundle.mmr` sit
 # under `lattice.bundle` and `lattice.bundle_batch` alike; `cg.wait` is
 # each CG iteration's one host read of its residual; `lattice.graph` is a
-# lattice's graph build, the IVF stages under it.
+# lattice's graph build, the IVF stages and `graph.topk` (the exact or fast
+# scan's top-k, whichever route `ops.graph.build_graph` takes) under it.
 SPANS = (
     "lattice.set_query", "lattice.signature", "lattice.ustar", "lattice.settle",
     "lattice.receipt", "receipt.energy", "receipt.nulls",
     "lattice.bundle", "bundle.scores", "bundle.mmr",
     "lattice.bundle_batch", "lattice.ustar_batch",
-    "lattice.graph", "ivf.pregate", "ivf.kmeans", "ivf.scan", "ivf.quality",
+    "lattice.graph", "graph.topk", "ivf.pregate", "ivf.kmeans", "ivf.scan", "ivf.quality",
     "cg.wait",
     "service.request", "service.decode", "service.validate", "service.arrays",
     "service.build", "service.settle", "service.bundle",

@@ -25,7 +25,8 @@ LATTICE_SPANS = {"lattice.set_query", "lattice.signature", "lattice.ustar", "lat
                  "lattice.receipt", "receipt.energy", "receipt.nulls", "lattice.bundle",
                  "bundle.scores", "bundle.mmr", "cg.wait"}
 BATCH_SPANS = {"lattice.bundle_batch", "lattice.ustar_batch"}
-GRAPH_SPANS = {"lattice.graph", "ivf.pregate", "ivf.kmeans", "ivf.scan", "ivf.quality"}
+GRAPH_SPANS = {"lattice.graph", "graph.topk", "ivf.pregate", "ivf.kmeans", "ivf.scan",
+               "ivf.quality"}
 SERVICE_SPANS = {"service.request", "service.decode", "service.validate", "service.arrays",
                  "service.build", "service.settle", "service.bundle"}
 
@@ -195,7 +196,11 @@ def test_every_graph_build_is_one_lattice_graph_span():
     with recording() as rec:
         lat = OscillinkLattice(Y, kneighbors=5, device="cpu")
         lat.rebuild_graph(kneighbors=4)
-    assert [(s.name, s.parent) for s in rec.spans] == [("lattice.graph", None)] * 2
+    roots = [s for s in rec.spans if s.name == "lattice.graph"]
+    assert [s.parent for s in roots] == [None] * 2
+    # each build's top-k scan is one graph.topk span inside it
+    assert sorted((s.name, s.parent) for s in rec.spans if s.name != "lattice.graph") == \
+        [("graph.topk", r.span_id) for r in roots]
 
 
 def test_signature_only_on_a_memo_miss_and_ustar_only_on_a_cache_miss():
